@@ -22,6 +22,21 @@ Phases (any failure exits non-zero, with no result line):
               torch.cuda.set_sync_debug_mode("error")
  7. writes    update, read back; writeback + evict everything, read again
  8. invariants of the final full-size state
+ 9. kernels   page_scores, paged_attention (the long_500k sparse step and
+              the decode_32k batch) and cat_update against their plain
+              versions at llama3-8b's widths, with times, bounds and the
+              library call where there is one
+10. kvoracle  at a small size: the KV plane's batched fetch executor
+              against its reference executor, bit for bit (attend_sparse
+              with each lookahead mode; sharded_sparse_decode, 2 shards)
+11. kvsparse  llama3-8b long_500k, one layer (slab [8, 8192, 64, 128]
+              bf16): 128 attend_sparse steps, both kernels every step and
+              checked against their plain versions on 23 of them; frames
+              against the slab; PSF flips and packed fetches; a profile of
+              16 steps; 32 steps under set_sync_debug_mode("error")
+12. kvdense   llama3-8b decode_32k, one layer (B=128, 65,536 frames): 8
+              append_dense + attend_dense steps against an f32
+              recomputation on 4 sequences
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA GPU and the repository's
@@ -47,6 +62,18 @@ SEED = 0
 # published HBM rate of the card (bytes/s), by product name
 HBM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
             ("H100", 3.35e12))
+# published dense peaks of an H100 SXM (operations/s)
+PEAK_F32, PEAK_BF16 = 67e12, 989e12
+# the KV plane at llama3-8b's widths (src/repro/configs/llama3_8b.py: 32
+# query heads, 8 kv heads, head_dim 128) with the plane's 64-token pages
+# (src/repro/models/api.py): long_500k through api._kv_cfg_sparse with one
+# shard, decode_32k through api._kv_cfg_dense; one layer each
+LLAMA_HEADS, LLAMA_KV_HEADS, LLAMA_HEAD_DIM, PAGE_TOKENS = 32, 8, 128, 64
+SPARSE_PAGES, SPARSE_FRAMES, SPARSE_TOPK, SPARSE_FETCH = 8192, 96, 64, 4
+DENSE_BATCH, DENSE_PAGES = 128, 512
+KV_STEPS, KV_NOSYNC, DENSE_STEPS = 128, 32, 8
+# cat_update at the hybrid plane's CAT: 3,145,728 pages of 8 cards
+CAT_PAGES, CAT_CARDS, CAT_TOUCHES = 3_145_728, 8, 1024
 
 
 def log(msg: str) -> None:
@@ -377,6 +404,610 @@ def phase_profile(torch, plane, eng, ids_all, first: int, n: int,
             f"{busy * 1e3:.3f} ms, {ops:.0f} device ops [{card}]")
 
 
+# --------------------------------------------------------------------------
+# the KV serve plane (kvplane) at llama3-8b's widths
+# --------------------------------------------------------------------------
+
+def bound(bytes_moved: float, ops: float, rate: float, peak: float):
+    """(ms, "bytes" or "operations"): the least time for this work."""
+    t_b, t_o = bytes_moved / rate, ops / peak
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+def kv_record(name, source, replaces, ms, plain_ms, lib_ms, err, bnd):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms)
+
+
+def used_borderline(torch, q, kf, vf, table, lens):
+    """[B, NP, P] bool: rows whose weight is within 1e-5*mass of the card
+    signal's threshold (w*P = page mass) for some query head, computed as
+    the plain version computes w.  There the kernel's other summation
+    order may decide the other way."""
+    B, H, Dh = q.shape
+    KVH, _, P, _ = kf.shape
+    NP = table.shape[1]
+    G = H // KVH
+    safe = table.clamp_min(0).long()
+    k = kf[:, safe].float().permute(1, 0, 2, 3, 4).reshape(B, KVH, NP * P, Dh)
+    sc = torch.einsum("bkgd,bksd->bkgs", q.reshape(B, KVH, G, Dh).float(), k)
+    sc = sc / Dh ** 0.5
+    row = torch.arange(P, device=q.device).repeat(NP)
+    valid = ((row[None] < lens.repeat_interleave(P, dim=1))
+             & (table >= 0).repeat_interleave(P, dim=1))[:, None, None]
+    e = torch.where(valid, torch.exp(sc - sc.masked_fill(~valid, -torch.inf)
+                                     .amax(-1, keepdim=True)), 0.0)
+    w = (e / e.sum(-1, keepdim=True).clamp_min(1e-30)).reshape(
+        B, KVH, G, NP, P)
+    mass = w.sum(-1, keepdim=True)
+    near = (w * P - mass).abs() <= 1e-5 * mass
+    return near.any(dim=2).any(dim=1) & valid.reshape(B, NP, P)
+
+
+def attention_tol(torch, out_p) -> float:
+    """Paged attention's absolute tolerance: 2e-2 (bf16) or 2e-5 (f32), the
+    limits tests/test_kernels.py holds the Pallas kernel to, times the
+    largest plain output.  Outputs shrink with the rows attended (about
+    0.04 at most over 32,768 rows of N(0,1) data), so a fixed limit would
+    pass a kernel that returns half of every value; this one is 2.5 bf16
+    ulps of the largest output, and 40x the f32 rounding of the plain
+    version against f64."""
+    rel = 2e-2 if out_p.dtype == torch.bfloat16 else 2e-5
+    return rel * float(out_p.float().abs().max())
+
+
+def check_attention(torch, name, out_k, used_k, out_p, used_p, border):
+    """out within attention_tol of the plain version; used equal except on
+    borderline rows."""
+    tol = attention_tol(torch, out_p)
+    err = float((out_k.float() - out_p.float()).abs().max())
+    check(err <= tol, f"{name}: out differs from the plain version by {err} "
+                      f"(tolerance {tol:.3g})")
+    diff = used_k != used_p
+    n_border = int(border.sum())
+    check(not bool((diff & ~border).any()),
+          f"{name}: used differs on {int((diff & ~border).sum())} rows that "
+          f"are not within rounding of the threshold")
+    return err, int(diff.sum()), n_border
+
+
+def sdpa_fn(torch, q, k, v):
+    """One scaled_dot_product_attention call (GQA) on K/V already gathered
+    contiguous ([B, KVH, L, Dh]); q [B, H, Dh]."""
+    q4 = q[:, :, None, :]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k, v, enable_gqa=True)
+
+
+def phase_kv_kernels(torch, ops, ref, card: str, rate: float) -> list:
+    """page_scores, paged_attention (sparse and dense shapes) and
+    cat_update against their plain versions at llama3-8b's full widths."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 2)
+    bf16 = torch.bfloat16
+    KVH, H, Dh, P = LLAMA_KV_HEADS, LLAMA_HEADS, LLAMA_HEAD_DIM, PAGE_TOKENS
+    G = H // KVH
+    out = []
+    qs = [torch.randn((1, H, Dh), generator=g, device=dev, dtype=bf16)
+          for _ in range(8)]
+
+    def cyc(items):
+        pos = [0]
+
+        def nxt():
+            pos[0] += 1
+            return items[pos[0] % len(items)]
+        return nxt
+
+    # ---- page_scores: long_500k summaries, [8, 8192, 128] f32 ------------
+    NP = SPARSE_PAGES
+    kmax = torch.randn((KVH, NP, Dh), generator=g, device=dev)
+    kmin = kmax - torch.rand((KVH, NP, Dh), generator=g, device=dev)
+    got = ops.page_scores(qs[0], kmax, kmin)
+    want = ref.page_scores_ref(qs[0], kmax, kmin)
+    err = float((got - want).abs().max())
+    tol = 1e-5 * float(want.abs().max())
+    check(err <= tol, f"page_scores: max abs err {err} > {tol}")
+    pick = cyc(qs)
+    ms = device_ms(torch, lambda: ops.page_scores(pick(), kmax, kmin))
+    plain_ms = device_ms(torch, lambda: ref.page_scores_ref(pick(), kmax,
+                                                            kmin), n=10)
+    nbytes = 2 * KVH * NP * Dh * 4 + H * Dh * 2 + KVH * NP * 4
+    bnd = bound(nbytes, 4 * G * KVH * NP * Dh, rate, PEAK_F32)
+    log(f"[kernel] page_scores {list(qs[0].shape)} bf16 x {[KVH, NP, Dh]} f32: max "
+        f"abs err {err:.3g} (tolerance {tol:.3g}); {ms * 1e3:.2f} us (plain "
+        f"{plain_ms * 1e3:.2f} us, library none, bound {bnd[0] * 1e3:.2f} us "
+        f"by {bnd[1]}) [{card}]")
+    out.append(kv_record("page_scores",
+                         "src/repro_torch/kernels/csrc/page_scores.cu",
+                         "src/repro/kernels/topk_pages.py:36", ms, plain_ms,
+                         None, err, bnd))
+    del kmax, kmin
+
+    # ---- paged_attention, sparse step: 64 selected pages of 96 frames -----
+    F, K = SPARSE_FRAMES, SPARSE_TOPK
+    kf = torch.randn((KVH, F + 1, P, Dh), generator=g, device=dev, dtype=bf16)
+    vf = torch.randn((KVH, F + 1, P, Dh), generator=g, device=dev, dtype=bf16)
+    tables = [torch.randperm(F, generator=g, device=dev)[:K].to(
+        torch.int32)[None] for _ in range(8)]
+    lens = torch.full((1, K), P, dtype=torch.int32, device=dev)
+    o_k, u_k = ops.paged_attention(qs[0], kf, vf, tables[0], lens)
+    o_p, u_p = ref.paged_attention_ref(qs[0], kf, vf, tables[0], lens)
+    border = used_borderline(torch, qs[0], kf, vf, tables[0], lens)
+    err, n_diff, n_border = check_attention(torch, "paged_attention (sparse)",
+                                            o_k, u_k, o_p, u_p, border)
+    pq, pt = cyc(qs), cyc(tables)
+    ms = device_ms(torch, lambda: ops.paged_attention(pq(), kf, vf, pt(),
+                                                      lens))
+    plain_ms = device_ms(torch, lambda: ref.paged_attention_ref(
+        pq(), kf, vf, pt(), lens), n=10)
+    kg = kf[:, tables[0][0].long()].reshape(1, KVH, K * P, Dh).contiguous()
+    vg = vf[:, tables[0][0].long()].reshape(1, KVH, K * P, Dh).contiguous()
+    lib_ms = device_ms(torch, sdpa_fn(torch, qs[0], kg, vg))
+    nbytes = 2 * KVH * K * P * Dh * 2 + 2 * H * Dh * 2 + K * P + 8 * K
+    bnd = bound(nbytes, 4 * G * Dh * K * P * KVH, rate, PEAK_BF16)
+    log(f"[kernel] paged_attention sparse (B=1, {K} pages of {P} rows, bf16): "
+        f"max abs err {err:.3g} (tolerance 2e-2 x the largest output), used "
+        f"differs on {n_diff} "
+        f"rows, {n_border} rows within 1e-5*mass of the threshold; "
+        f"{ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, library "
+        f"scaled_dot_product_attention on K/V gathered contiguous, without "
+        f"the gather and the used signal, {lib_ms * 1e3:.2f} us, bound "
+        f"{bnd[0] * 1e3:.2f} us by {bnd[1]}) [{card}]")
+    rec = kv_record("paged_attention",
+                    "src/repro_torch/kernels/csrc/paged_attention.cu",
+                    "src/repro/kernels/paged_attention.py:83", ms, plain_ms,
+                    lib_ms, err, bnd)
+    del kf, vf, kg, vg
+
+    # ---- paged_attention at the other shapes the kernel takes: both
+    # dtypes, both group templates, staged and unstaged pages (the
+    # unstaged variant serves pages whose two buffers exceed 128 KB), one
+    # block per (sequence, kv head) and pages split over blocks (40 x 4
+    # pairs fill an H100's SMs, 3 x 2 do not), and a sequence with no
+    # valid row (0, not NaN)
+    from repro_torch.kernels import paged_attention as tpattn
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_single = 0
+    for dt, Pp, Dd, Gg, Bs, KVs in (
+            (torch.float32, 128, 256, 8, 3, 2), (bf16, 128, 256, 2, 3, 2),
+            (torch.float32, 64, 128, 4, 3, 2), (bf16, 16, 64, 1, 3, 2),
+            (torch.float32, 64, 128, 4, 40, 4), (bf16, 64, 128, 4, 40, 4)):
+        Hs, Fs, NPs = KVs * Gg, 12, 6
+        n_single += tpattn.split_pages(Bs * KVs, NPs, sms)[0] == 1
+        kf = torch.randn((KVs, Fs, Pp, Dd), generator=g, device=dev, dtype=dt)
+        vf = torch.randn((KVs, Fs, Pp, Dd), generator=g, device=dev, dtype=dt)
+        qx = torch.randn((Bs, Hs, Dd), generator=g, device=dev, dtype=dt)
+        tab = torch.stack([torch.randperm(Fs, generator=g, device=dev)[:NPs]
+                           for _ in range(Bs)]).to(torch.int32)
+        tab[-1] = -1
+        tab[0, 2] = -1
+        ln = torch.randint(0, Pp + 1, (Bs, NPs), generator=g, device=dev,
+                           dtype=torch.int32)
+        o_k, u_k = ops.paged_attention(qx, kf, vf, tab, ln)
+        o_p, u_p = ref.paged_attention_ref(qx, kf, vf, tab, ln)
+        border = used_borderline(torch, qx, kf, vf, tab, ln)
+        check_attention(torch, f"paged_attention ({dt}, P={Pp}, Dh={Dd}, "
+                               f"G={Gg})", o_k, u_k, o_p, u_p, border)
+        check(not bool(o_k[-1].any()), "paged_attention: an empty sequence "
+                                       "did not give 0")
+    check(n_single == 2, f"paged_attention: {n_single} of the other shapes "
+                         f"ran unsplit on {sms} SMs, not 2")
+    log("[kernel] paged_attention also equal to plain at f32 P=128 Dh=256 "
+        "G=8, bf16 P=128 Dh=256 G=2 (unstaged pages), f32 P=64 Dh=128 G=4, "
+        "bf16 P=16 Dh=64 G=1 (3 sequences x 2 kv heads, split pages), f32 "
+        "and bf16 P=64 Dh=128 G=4 (40 sequences x 4 kv heads, one block "
+        "each), with an empty sequence giving 0")
+    del kf, vf
+
+    # ---- paged_attention, dense decode_32k: B=128, 512 pages each ---------
+    B, NPd = DENSE_BATCH, DENSE_PAGES
+    Fd = B * NPd
+    kf = torch.empty((KVH, Fd + 1, P, Dh), device=dev, dtype=bf16)
+    vf = torch.empty((KVH, Fd + 1, P, Dh), device=dev, dtype=bf16)
+    for h in range(KVH):
+        kf[h].normal_(generator=g)
+        vf[h].normal_(generator=g)
+    table = torch.arange(Fd, dtype=torch.int32, device=dev).view(B, NPd)
+    lens = torch.full((B, NPd), P, dtype=torch.int32, device=dev)
+    qd = torch.randn((B, H, Dh), generator=g, device=dev, dtype=bf16)
+    o_k, u_k = ops.paged_attention(qd, kf, vf, table, lens)
+    n4 = 4
+    o_p, u_p = ref.paged_attention_ref(qd[:n4], kf, vf, table[:n4],
+                                       lens[:n4])
+    border = used_borderline(torch, qd[:n4], kf, vf, table[:n4], lens[:n4])
+    err_d, n_diff, n_border = check_attention(
+        torch, "paged_attention (dense, 4 of 128 sequences)", o_k[:n4],
+        u_k[:n4], o_p, u_p, border)
+    ms_d = device_ms(torch, lambda: ops.paged_attention(qd, kf, vf, table,
+                                                        lens), n=5, rounds=3)
+    plain4_ms = device_ms(torch, lambda: ref.paged_attention_ref(
+        qd[:n4], kf, vf, table[:n4], lens[:n4]), n=3, rounds=3)
+    kg = kf[:, :Fd].view(KVH, B, NPd * P, Dh).transpose(0, 1).contiguous()
+    vg = vf[:, :Fd].view(KVH, B, NPd * P, Dh).transpose(0, 1).contiguous()
+    lib_d = device_ms(torch, sdpa_fn(torch, qd, kg, vg), n=5, rounds=3)
+    del kg, vg
+    L = NPd * P
+    nbytes = 2 * B * KVH * L * Dh * 2 + 2 * B * H * Dh * 2 + B * NPd * P \
+        + 8 * B * NPd
+    bnd_d = bound(nbytes, 4 * G * Dh * L * KVH * B, rate, PEAK_BF16)
+    log(f"[kernel] paged_attention dense (decode_32k, B={B} x {L} tokens, "
+        f"bf16): max abs err {err_d:.3g} on 4 sequences (tolerance 2e-2 x "
+        f"the largest output), "
+        f"used differs on {n_diff} rows, {n_border} borderline; "
+        f"{ms_d:.3f} ms (plain version on 4 of the 128 sequences "
+        f"{plain4_ms:.3f} ms, library scaled_dot_product_attention on K/V "
+        f"gathered contiguous {lib_d:.3f} ms, bound {bnd_d[0]:.3f} ms by "
+        f"{bnd_d[1]}) [{card}]")
+    rec.update(dense_ms=ms_d, dense_plain_ms_4_of_128=plain4_ms,
+               dense_library_ms=lib_d, dense_bound_ms=bnd_d[0],
+               dense_max_abs_err=err_d)
+    out.append(rec)
+    del kf, vf
+    torch.cuda.empty_cache()
+
+    # ---- cat_update: the hybrid plane's CAT, V=3,145,728, P=8, R=1024 ------
+    V, Pc, R = CAT_PAGES, CAT_CARDS, CAT_TOUCHES
+    bits = torch.randint(0, 2 ** Pc, (V, 1), generator=g, device=dev,
+                         dtype=torch.int32)
+    sets = []
+    for _ in range(8):
+        va = torch.randint(-1, V * Pc, (R,), generator=g, device=dev,
+                           dtype=torch.int32)
+        va[: R // 4] = va[R // 4: R // 2]            # duplicate touches
+        sets.append(va)
+    b_k, c_k = ops.cat_update(bits, sets[0], page_objs=Pc)
+    b_p, c_p = ref.cat_update_ref(bits, sets[0], Pc)
+    check(torch.equal(b_k, b_p) and torch.equal(c_k.view(torch.int32),
+                                                c_p.view(torch.int32)),
+          "cat_update: kernel disagrees with its plain version")
+    pv = cyc(sets)
+    ms = device_ms(torch, lambda: ops.cat_update(bits, pv(), page_objs=Pc))
+    plain_ms = device_ms(torch, lambda: ref.cat_update_ref(bits, pv(), Pc),
+                         n=10)
+    bnd = bound(8 * V + 4 * V + 4 * R, 2 * R + 6 * V, rate, PEAK_F32)
+    log(f"[kernel] cat_update V={V} P={Pc} R={R}: equal to plain, bits and "
+        f"CAR bit for bit; {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, "
+        f"library none, bound {bnd[0] * 1e3:.2f} us by {bnd[1]}) [{card}]")
+    out.append(kv_record("cat_update",
+                         "src/repro_torch/kernels/csrc/cat_update.cu",
+                         "src/repro/kernels/cat_update.py:55", ms, plain_ms,
+                         None, 0.0, bnd))
+    del bits, sets
+    torch.cuda.synchronize()
+    return out
+
+
+def _kv_states_equal(convert, cfg, a, b) -> bool:
+    import numpy as np
+    x, y = convert.kv_state_to_numpy(cfg, a), convert.kv_state_to_numpy(cfg, b)
+    return all(np.array_equal(x[k], y[k]) for k in x)
+
+
+def phase_kv_oracles(torch, tkv, convert) -> None:
+    """Small-size oracles on the card: the batched fetch executor against
+    the reference executor, bit for bit (outputs and every state field),
+    through attend_sparse with each lookahead mode and through
+    sharded_sparse_decode over two shards."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 3)
+    for prefetch, frames in (("none", 5), ("sequential", 8),
+                             ("majority", 8)):
+        cfg = tkv.KVPlaneConfig(
+            kv_heads=2, head_dim=8, page_tokens=4, num_pages=12,
+            num_frames=frames, batch=2, sparse_topk=4, fetch_budget=2,
+            car_threshold=0.5, dtype=torch.float32, prefetch=prefetch,
+            prefetch_budget=0 if prefetch == "none" else 2)
+        sb = tkv.init(cfg, dev)
+        sb.k_slab.normal_(generator=g)
+        sb.k_slab[:, 3, 2] = 4.0                  # magnet rows: skewed pages
+        sb.k_slab[:, 12, 1] = -4.0
+        sb.v_slab.normal_(generator=g)
+        sb.kmax.copy_(sb.k_slab.amax(dim=2))
+        sb.kmin.copy_(sb.k_slab.amin(dim=2))
+        sr = sb.clone()
+        lengths = torch.full((2,), 48, dtype=torch.int32, device=dev)
+        for i in range(12):
+            q = torch.randn((2, 4, 8), generator=g, device=dev) * (
+                3.0 if i % 2 else 0.3)
+            ob, _ = tkv.attend_sparse(cfg, sb, q, lengths, mode="batch")
+            orr, _ = tkv.attend_sparse(cfg, sr, q, lengths, mode="reference")
+            check(torch.equal(ob, orr), f"kv oracle ({prefetch}): outputs "
+                                        f"differ at step {i}")
+            check(_kv_states_equal(convert, cfg, sb, sr),
+                  f"kv oracle ({prefetch}): states differ at step {i}")
+        log(f"[kvoracle] attend_sparse prefetch={prefetch}: batch == "
+            f"reference executor over 12 steps ({int((~sb.psf[:-1]).sum())} "
+            f"pages on the runtime path)")
+    # two shards of 4 pages of 8 tokens, two frames each; magnet rows on
+    # pages 1 and 4 and alternating queries churn the frames, so magnet
+    # pages flip to the runtime path and come back packed
+    cfg = tkv.KVPlaneConfig(kv_heads=1, head_dim=16, page_tokens=8,
+                            num_pages=4, num_frames=2, batch=1, sparse_topk=2,
+                            fetch_budget=2, dtype=torch.float32)
+    tb = [tkv.init(cfg, dev) for _ in range(2)]
+    tr = [s.clone() for s in tb]
+    keys = torch.randn((64, 1, 16), generator=g, device=dev) * 0.05
+    keys[1 * 8 + 3] = 3.0
+    keys[4 * 8 + 5] = -3.0
+    vals = torch.randn((64, 1, 16), generator=g, device=dev)
+    for t in range(64):
+        lengths = torch.full((1,), t, dtype=torch.int32, device=dev)
+        for st in (tb, tr):
+            tkv.append_sharded(cfg, st, keys[t:t + 1], vals[t:t + 1], lengths)
+    lengths = torch.full((1,), 64, dtype=torch.int32, device=dev)
+    packed = 0
+    for i in range(16):
+        q = torch.full((1, 1, 16), 1.0 if i % 2 == 0 else -1.0, device=dev)
+        ob, _ = tkv.sharded_sparse_decode(cfg, tb, q, lengths)
+        orr, _ = tkv.sharded_sparse_decode(cfg, tr, q, lengths,
+                                           mode="reference")
+        check(torch.equal(ob, orr) and _kv_states_equal(convert, cfg, tb, tr),
+              f"kv oracle (sharded): batch and reference differ at step {i}")
+        packed += sum(int(((s.page_rows[:-1] > 0)
+                           & (s.page_rows[:-1] < 8)).sum()) for s in tb)
+    flips = sum(int((~s.psf[:-1]).sum()) for s in tb)
+    log(f"[kvoracle] append_sharded + sharded_sparse_decode (D=2): batch == "
+        f"reference executor over 64 appends and 16 decodes ({flips} pages "
+        f"on the runtime path, {packed} packed residencies)")
+
+
+def sparse_plane(torch, tkv, g):
+    """llama3-8b's long_500k plane, one layer, filled directly: flat pages
+    (keys 0.1 * N(0, 1)) and, on a quarter of the pages, one magnet row
+    along a shared direction u that every query leans toward, so those
+    pages' attention is skewed and their PSF can flip to runtime."""
+    dev = g.device
+    cfg = tkv.KVPlaneConfig(kv_heads=LLAMA_KV_HEADS, head_dim=LLAMA_HEAD_DIM,
+                            page_tokens=PAGE_TOKENS, num_pages=SPARSE_PAGES,
+                            num_frames=SPARSE_FRAMES, batch=1,
+                            sparse_topk=SPARSE_TOPK,
+                            fetch_budget=SPARSE_FETCH)
+    s = tkv.init(cfg, dev)
+    KVH, NP, P, Dh = cfg.kv_heads, cfg.num_pages, cfg.page_tokens, \
+        cfg.head_dim
+    u = torch.ones((Dh,), device=dev) / Dh ** 0.5
+    for h in range(KVH):
+        s.k_slab[h].normal_(generator=g).mul_(0.1)
+        s.v_slab[h].normal_(generator=g)
+    mag = torch.randperm(NP - 1, generator=g, device=dev)[:NP // 4]
+    rows = torch.randint(0, P, (mag.shape[0],), generator=g, device=dev)
+    s.k_slab[:, mag, rows] = (16.0 * u).to(cfg.dtype)
+    s.kmax.copy_(s.k_slab.amax(dim=2).float())
+    s.kmin.copy_(s.k_slab.amin(dim=2).float())
+    qs = [(torch.randn((1, LLAMA_HEADS, Dh), generator=g, device=dev)
+           + 4.0 * u).to(cfg.dtype) for _ in range(8)]
+    lengths = torch.full((1,), NP * P, dtype=torch.int32, device=dev)
+    return cfg, s, qs, lengths
+
+
+def check_frames_hold_slab(torch, cfg, s) -> tuple[int, int]:
+    """Every resident page's frame holds its slab rows: a paging page the
+    whole page in order, a packed page its hot rows first, in hint order
+    (the rest of the permuted page after them).  Returns (whole, packed)."""
+    F = cfg.num_frames
+    gp = s.frame_page[:F]
+    res = gp >= 0
+    g = gp.clamp_min(0).long()
+    hot = s.hot_hint[g]
+    packed = res & ~s.psf[g] & hot.any(dim=1)
+    perm = torch.argsort((~hot).int(), dim=1, stable=True)
+    ident = torch.arange(cfg.page_tokens, device=gp.device).expand_as(perm)
+    perm = torch.where(packed[:, None], perm, ident)
+    want = s.k_slab[:, g].gather(
+        2, perm[None, :, :, None].expand(cfg.kv_heads, -1, -1,
+                                         cfg.head_dim))
+    have = s.k_frames[:, :F]
+    same = (want == have).flatten(2).all(dim=2).all(dim=0)
+    check(bool((same | ~res).all()),
+          f"{int((~same & res).sum())} resident frames do not hold their "
+          f"slab rows")
+    rows = s.page_rows[g]
+    check(bool(((rows == hot.sum(1)) | ~packed).all()),
+          "a packed page's row count is not its hot-row count")
+    return int((res & ~packed).sum()), int(packed.sum())
+
+
+def phase_kv_sparse(torch, ops, ref, tkv, card: str):
+    """The long_500k sparse hybrid decode: 128 steps of attend_sparse with
+    8 cycling queries, both kernels launched every step and checked against
+    their plain versions (on the inputs the step gave them) on the first 8
+    steps and every 16th; then the frames, the PSF flips and the packed
+    fetches.  Returns (cfg, state, queries, lengths, launch counts)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 4)
+    t0 = time.time()
+    cfg, s, qs, lengths = sparse_plane(torch, tkv, g)
+    torch.cuda.synchronize()
+    log(f"[kvsparse] llama3-8b long_500k plane, one layer: slab "
+        f"{tuple(s.k_slab.shape)} bf16 x2 ({2 * s.k_slab.nbytes / 1e9:.2f} "
+        f"GB), summaries {tuple(s.kmax.shape)} f32, frames "
+        f"{tuple(s.k_frames.shape)} (one trash frame), top-{cfg.sparse_topk},"
+        f" fetch budget {cfg.fetch_budget}; filled in {time.time() - t0:.1f}s")
+
+    captured = {}
+    capture = [False]
+    orig_ps, orig_pa = ops.page_scores, ops.paged_attention
+
+    def spy_ps(q, kmax, kmin, **kw):
+        out = orig_ps(q, kmax, kmin, **kw)
+        if capture[0]:
+            captured["ps"] = (q.clone(), out.clone())
+        return out
+
+    def spy_pa(q, kf, vf, table, lens, **kw):
+        out, used = orig_pa(q, kf, vf, table, lens, **kw)
+        if capture[0]:
+            captured["pa"] = tuple(x.clone() for x in
+                                   (q, kf, vf, table, lens, out, used))
+        return out, used
+
+    checks = []
+    host_ms, packed_seen = [], 0
+    ops.page_scores, ops.paged_attention = spy_ps, spy_pa
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        for i in range(KV_STEPS):
+            capture[0] = i < 8 or i % 16 == 15
+            ts = time.perf_counter()
+            out, _ = tkv.attend_sparse(cfg, s, qs[i % 8], lengths)
+            if not capture[0]:
+                host_ms.append((time.perf_counter() - ts) * 1e3)
+            if capture[0]:
+                checks.append((i, captured.pop("ps"), captured.pop("pa"),
+                               out.clone()))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = ops.launch_counts()
+    finally:
+        ops.page_scores, ops.paged_attention = orig_ps, orig_pa
+    check(bool(torch.isfinite(out).all()), "kvsparse: non-finite output")
+    for k in ("page_scores", "paged_attention"):
+        check(launches[k] == KV_STEPS,
+              f"kvsparse: {k} launched {launches[k]} times in {KV_STEPS} "
+              f"steps")
+    check(launches["gather_rows"] > 0, "kvsparse: no page-in gather")
+    worst_ps = worst_pa = 0.0
+    n_border = n_diff = 0
+    for i, (q, sc_k), (qa, kf, vf, table, lens, o_k, u_k), out_i in checks:
+        sc_p = ref.page_scores_ref(q, s.kmax, s.kmin)
+        e = float((sc_k - sc_p).abs().max())
+        check(e <= 1e-5 * float(sc_p.abs().max()),
+              f"kvsparse step {i}: page_scores off by {e}")
+        worst_ps = max(worst_ps, e)
+        o_p, u_p = ref.paged_attention_ref(qa, kf, vf, table, lens)
+        border = used_borderline(torch, qa, kf, vf, table, lens)
+        e, nd, nb = check_attention(torch, f"kvsparse step {i} attention",
+                                    o_k, u_k, o_p, u_p, border)
+        check(torch.equal(o_k, out_i), "the step returned another output")
+        worst_pa, n_diff, n_border = max(worst_pa, e), n_diff + nd, \
+            n_border + nb
+    whole, packed = check_frames_hold_slab(torch, cfg, s)
+    flips = int((~s.psf[:-1]).sum())
+    rows = s.page_rows[:-1]
+    check(flips > 0, "kvsparse: no PSF flipped to runtime")
+    check(packed > 0 or bool(((rows > 0) & (rows < cfg.page_tokens)).any()),
+          "kvsparse: no packed (runtime-path) page resident")
+    log(f"[kvsparse] {KV_STEPS} steps in {wall:.3f}s: {wall / KV_STEPS * 1e3:.3f}"
+        f" ms per step with a sync at the end, host time per step p50 "
+        f"{statistics.median(host_ms):.3f} ms [{card}]")
+    log(f"[kvsparse] kernel launches {launches} ({KV_STEPS} steps)")
+    log(f"[kvsparse] checked {len(checks)} steps against the plain versions: "
+        f"page_scores max abs err {worst_ps:.3g} (tolerance 1e-5 x max "
+        f"score), paged_attention max abs err {worst_pa:.3g} (tolerance "
+        f"2e-2 x the largest output), used differs on {n_diff} rows, "
+        f"{n_border} rows within "
+        f"1e-5*mass of the threshold")
+    log(f"[kvsparse] frames hold their slab rows: {whole} whole pages, "
+        f"{packed} packed pages resident; {flips} pages flipped to the "
+        f"runtime path")
+    return cfg, s, qs, lengths, launches
+
+
+def phase_kv_sparse_tail(torch, tkv, cfg, s, qs, lengths, card: str) -> None:
+    """Where a sparse step's time goes (torch.profiler over 16 steps), then
+    32 steps under set_sync_debug_mode("error")."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for i in range(16):
+            tkv.attend_sparse(cfg, s, qs[i % 8], lengths)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) / 16
+    rows = [(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0)), e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(r[0] for r in rows) / 1e6 / 16
+    n_ops = sum(r[1] for r in rows) / 16
+    log(f"[kvsparse] profile over 16 steps: wall {wall * 1e3:.3f} ms/step, "
+        f"device busy {busy * 1e3:.3f} ms/step ({100 * busy / wall:.1f}% of "
+        f"wall), {n_ops:.0f} device ops/step [{card}]")
+    for dev_us, count, key in sorted(rows, reverse=True)[:10]:
+        log(f"[kvsparse]   {dev_us / 1e3 / 16:8.4f} ms/step "
+            f"{count / 16:6.1f} per step  {key[:80]}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(KV_NOSYNC):
+            out, _ = tkv.attend_sparse(cfg, s, qs[i % 8], lengths)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(bool(torch.isfinite(out).all()), "kvsparse: non-finite output")
+    log(f"[kvsparse] {KV_NOSYNC} more steps under set_sync_debug_mode"
+        f"('error'): no host sync")
+
+
+def phase_kv_dense(torch, ops, ref, tkv, card: str) -> dict:
+    """llama3-8b's decode_32k plane, one layer (B=128, 512 pages of 64
+    tokens each, 65,536 frames), frames filled directly: 8 steps of
+    append_dense + attend_dense, each checked against an f32 recomputation
+    from the frames on 4 sequences."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 5)
+    B, NP, P = DENSE_BATCH, DENSE_PAGES, PAGE_TOKENS
+    cfg = tkv.KVPlaneConfig(kv_heads=LLAMA_KV_HEADS, head_dim=LLAMA_HEAD_DIM,
+                            page_tokens=P, num_pages=NP, num_frames=B * NP,
+                            batch=B)
+    t0 = time.time()
+    s = tkv.init(cfg, dev)
+    for h in range(cfg.kv_heads):
+        s.k_frames[h].normal_(generator=g)
+        s.v_frames[h].normal_(generator=g)
+    lengths = torch.full((B,), NP * P - DENSE_STEPS, dtype=torch.int32,
+                         device=dev)
+    torch.cuda.synchronize()
+    log(f"[kvdense] llama3-8b decode_32k plane, one layer: frames "
+        f"{tuple(s.k_frames.shape)} bf16 x2 ({2 * s.k_frames.nbytes / 1e9:.1f}"
+        f" GB), filled in {time.time() - t0:.1f}s")
+    H, Dh = LLAMA_HEADS, cfg.head_dim
+    table = s.page_table[:-1].view(B, NP)
+    ops.reset_launch_counts()
+    step_ms, worst = [], 0.0
+    for i in range(DENSE_STEPS):
+        kn = torch.randn((B, cfg.kv_heads, Dh), generator=g, device=dev,
+                         dtype=cfg.dtype)
+        vn = torch.randn((B, cfg.kv_heads, Dh), generator=g, device=dev,
+                         dtype=cfg.dtype)
+        q = torch.randn((B, H, Dh), generator=g, device=dev, dtype=cfg.dtype)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        tkv.append_dense(cfg, s, kn, vn, lengths)
+        lengths = lengths + 1
+        out, _ = tkv.attend_dense(cfg, s, q, lengths)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        lens = ops.lengths_to_page_lens(lengths[:4], NP, P)
+        want, _ = ref.paged_attention_ref(q[:4], s.k_frames, s.v_frames,
+                                          table[:4], lens)
+        err = float((out[:4].float() - want.float()).abs().max())
+        tol = attention_tol(torch, want)
+        check(err <= tol, f"kvdense step {i}: output off by {err} "
+                          f"(tolerance {tol:.3g})")
+        worst = max(worst, err)
+    launches = ops.launch_counts()
+    check(launches["paged_attention"] == DENSE_STEPS,
+          f"kvdense: paged_attention launched {launches['paged_attention']} "
+          f"times in {DENSE_STEPS} steps")
+    check(bool(s.psf[:-1].all()) and bool(s.cat[:-1].all()),
+          "kvdense: a page left the paging path or a card stayed unmarked")
+    log(f"[kvdense] {DENSE_STEPS} steps of append_dense + attend_dense: "
+        f"{statistics.median(step_ms):.3f} ms per step (median, synced; "
+        f"first {step_ms[0]:.3f} ms); output vs an f32 recomputation from the "
+        f"frames on 4 sequences max abs err {worst:.3g} (tolerance 2e-2 x "
+        f"the largest output); launches {launches} [{card}]")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -387,7 +1018,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch import convert
-    from repro_torch.core import batch, plane, state
+    from repro_torch.core import batch, kvplane, plane, state
     from repro_torch.data import kvworkload
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.launch import serve
@@ -461,8 +1092,8 @@ def main() -> int:
     check(n_mism == 0, f"{n_mism} served rows differ from the data")
     for k in ("page_ins", "obj_ins", "evac_pages", "epochs"):
         check(stats[k] > 0, f"serve: {k} is 0")
-    for k, v in launches.items():
-        check(v > 0, f"serve: kernel {k} was never launched")
+    for k in ("gather_rows", "compact_pages", "cat_decay"):
+        check(launches[k] > 0, f"serve: kernel {k} was never launched")
     log(f"[serve] 0 of {SERVE_TICKS * BATCH} served rows differ from the data")
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -525,6 +1156,30 @@ def main() -> int:
     inv = plane.check_invariants(pcfg, s)
     check(all(inv.values()), f"invariants: {inv}")
     log(f"[invariants] all hold on the final full-size state: {sorted(inv)}")
+
+    # ---- the KV serve plane at llama3-8b's widths --------------------------
+    del eng, s, data, data_t, ids_all, wl
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    kernels += phase_kv_kernels(torch, ops, ref, card, rate)
+    phase_kv_oracles(torch, kvplane, convert)
+    kcfg, ks, qs, lengths, kv_launches = phase_kv_sparse(torch, ops, ref,
+                                                         kvplane, card)
+    phase_kv_sparse_tail(torch, kvplane, kcfg, ks, qs, lengths, card)
+    del ks
+    torch.cuda.empty_cache()
+    dense_launches = phase_kv_dense(torch, ops, ref, kvplane, card)
+    torch.cuda.empty_cache()
+    for k in kernels:
+        if k["name"] in ("page_scores", "paged_attention", "cat_update"):
+            # cat_update is on no runtime path, in the JAX package either
+            k["launches"] = kv_launches[k["name"]]
+            k["launches_per_step"] = kv_launches[k["name"]] / KV_STEPS
+        else:
+            k["launches_per_step"] = k["launches"] / SERVE_TICKS
+    pa = next(k for k in kernels if k["name"] == "paged_attention")
+    pa["dense_launches_per_step"] = (dense_launches["paged_attention"]
+                                     / DENSE_STEPS)
 
     log(f"[done] {time.time() - t_start:.1f}s [{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,7 +6,7 @@ from .plane import (access, update, evacuate, plan_evacuate,
                     execute_evacuate, advance_epoch, writeback_all,
                     evict_all, peek, occupancy, paging_fraction,
                     check_invariants)
-from . import batch, faults
+from . import batch, faults, kvplane
 
 __all__ = [
     "FREE", "LOCAL", "REMOTE", "PSF_PAGING", "PSF_RUNTIME", "PlaneConfig",
@@ -14,5 +14,5 @@ __all__ = [
     "access", "update", "evacuate", "plan_evacuate", "execute_evacuate",
     "advance_epoch", "writeback_all", "evict_all",
     "peek", "occupancy", "paging_fraction", "check_invariants",
-    "batch", "faults",
+    "batch", "faults", "kvplane",
 ]

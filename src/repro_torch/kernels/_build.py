@@ -22,7 +22,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gather_rows.cu", "compact_pages.cu", "cat_decay.cu")
+SOURCES = ("gather_rows.cu", "compact_pages.cu", "cat_decay.cu",
+           "page_scores.cu", "paged_attention.cu", "cat_update.cu")
 HEADERS = ("row_gather.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -105,6 +106,21 @@ def load_library() -> ctypes.CDLL:
         lib.repro_cat_decay.argtypes = [I32, P, P, P, P, I64, I32,
                                         ctypes.c_float, ctypes.c_float, P]
         lib.repro_cat_decay.restype = I32
+        # (device, q, q_bf16, kmax, kmin, out, B, KVH, G, NP, Dh, stream)
+        lib.repro_page_scores.argtypes = [I32, P, I32, P, P, P, I64, I32,
+                                          I32, I32, I32, P]
+        lib.repro_page_scores.restype = I32
+        # (device, q, q_bf16, k, v, kv_bf16, page_table, page_lens, out,
+        #  used, m_part, l_part, acc_part, B, KVH, G, Dh, F, P, NP, splits,
+        #  pages_per_split, scale, stream)
+        lib.repro_paged_attention.argtypes = [
+            I32, P, I32, P, P, I32, P, P, P, P, P, P, P, I64, I32, I32, I32,
+            I64, I32, I32, I32, I32, ctypes.c_float, P]
+        lib.repro_paged_attention.restype = I32
+        # (device, bits_in, vaddrs, bits_out, car, V, W, R, page_objs, stream)
+        lib.repro_cat_update.argtypes = [I32, P, P, P, P, I64, I32, I64, I32,
+                                         P]
+        lib.repro_cat_update.restype = I32
         lib.repro_error_string.argtypes = [I32]
         lib.repro_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -10,13 +10,19 @@ from __future__ import annotations
 import torch
 
 from . import cat_decay as _cat_decay_mod
+from . import cat_update as _cat_update_mod
 from . import compact as _compact_mod
 from . import gather_objects as _gather_mod
+from . import paged_attention as _paged_attn_mod
 from . import ref
+from . import topk_pages as _scores_mod
 
 _KERNEL_MODULES = {"gather_rows": _gather_mod,
                    "compact_pages": _compact_mod,
-                   "cat_decay": _cat_decay_mod}
+                   "cat_decay": _cat_decay_mod,
+                   "page_scores": _scores_mod,
+                   "paged_attention": _paged_attn_mod,
+                   "cat_update": _cat_update_mod}
 
 
 def _kernel(t: torch.Tensor, impl: str) -> bool:
@@ -82,3 +88,38 @@ def cat_decay(cat, car_ema, alloc, *, decay: float, impl="auto"):
     if _kernel(cat, impl):
         return _cat_decay_mod.cat_decay(cat, car_ema, alloc, decay=decay)
     return ref.cat_decay_ref(cat, car_ema, alloc, decay)
+
+
+def cat_update(cat_bits, vaddrs, *, page_objs: int, impl="auto"):
+    """Packed CAT update: cat_bits [V, W] int32 (uint32 words), vaddrs [R]
+    int32 (-1 = skip) -> (bits [V, W] int32, car [V] f32)."""
+    if _kernel(cat_bits, impl):
+        return _cat_update_mod.cat_update(cat_bits, vaddrs,
+                                          page_objs=page_objs)
+    return ref.cat_update_ref(cat_bits, vaddrs, page_objs)
+
+
+def page_scores(q, kmax, kmin, *, impl="auto"):
+    """q [B, H, Dh], kmax/kmin [KVH, NP, Dh] f32 -> [B, KVH, NP] f32."""
+    if _kernel(q, impl):
+        return _scores_mod.page_scores(q, kmax, kmin)
+    return ref.page_scores_ref(q, kmax, kmin)
+
+
+def paged_attention(q, k_pages, v_pages, page_table, page_lens, *,
+                    impl="auto"):
+    """q [B, H, Dh]; k/v_pages [KVH, F, P, Dh]; page_table/page_lens
+    [B, NP] int32 -> (out [B, H, Dh], used [B, NP, P] bool), ``used`` the
+    card-profiling signal reduced over kv heads."""
+    if _kernel(q, impl):
+        return _paged_attn_mod.paged_attention(q, k_pages, v_pages,
+                                               page_table, page_lens)
+    return ref.paged_attention_ref(q, k_pages, v_pages, page_table,
+                                   page_lens)
+
+
+def lengths_to_page_lens(lengths, num_pages: int, page_tokens: int):
+    """Dense layout helper: [B] total lengths -> [B, NP] rows per page."""
+    starts = torch.arange(num_pages, device=lengths.device) * page_tokens
+    return (lengths[:, None] - starts[None, :]).clamp(0, page_tokens).to(
+        torch.int32)

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import state
+from repro_torch.core import kvplane, state
 from repro_torch.core.layout import PlaneConfig
 from repro_torch.launch import serve
 from repro_torch.serving.engine import Engine, EngineConfig
@@ -42,10 +42,13 @@ def test_port_package_is_complete():
                 "core/paths.py", "core/batch.py", "core/plane.py",
                 "kernels/ref.py", "kernels/ops.py", "kernels/gather_objects.py",
                 "kernels/compact.py", "kernels/cat_decay.py",
+                "kernels/topk_pages.py", "kernels/paged_attention.py",
+                "kernels/cat_update.py", "core/kvplane.py",
                 "data/kvworkload.py", "serving/engine.py", "launch/serve.py"):
         assert (port / mod).exists(), mod
         assert (jaxpkg / mod).exists(), mod
     for src in ("gather_rows.cu", "compact_pages.cu", "cat_decay.cu",
+                "page_scores.cu", "paged_attention.cu", "cat_update.cu",
                 "row_gather.cuh"):
         assert (port / "kernels" / "csrc" / src).exists(), src
 
@@ -58,7 +61,10 @@ def test_entry_points_default_to_cuda():
     """Without a ``device`` the entry points take the card; on a machine
     without one they raise instead of falling back to the CPU."""
     data = np.zeros((64, 4), np.float32)
+    kv_cfg = kvplane.KVPlaneConfig(kv_heads=1, head_dim=8, page_tokens=4,
+                                   num_pages=2, num_frames=2, batch=1)
     calls = [lambda: state.create(CFG, torch.from_numpy(data)),
+             lambda: kvplane.init(kv_cfg),
              lambda: Engine(EngineConfig(batch=8), CFG, data),
              lambda: serve.main(["--objects", "64", "--steps", "1"])]
     if torch.cuda.is_available():

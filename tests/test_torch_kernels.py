@@ -13,12 +13,18 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.cat_update import cat_update as cat_update_pallas
 from repro.kernels.compact import compact_pages as compact_pallas
 from repro.kernels.gather_objects import gather_rows as gather_pallas
+from repro.kernels.paged_attention import paged_attention as pattn_pallas
+from repro.kernels.topk_pages import page_scores as scores_pallas
 from repro_torch.kernels import _build, cat_decay as tcat_decay
+from repro_torch.kernels import cat_update as tcat_update
 from repro_torch.kernels import compact as tcompact
 from repro_torch.kernels import gather_objects as tgather
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import paged_attention as tpattn
+from repro_torch.kernels import topk_pages as tscores
 
 RNG = np.random.RandomState(0)
 
@@ -137,7 +143,21 @@ def test_cpu_tensors_never_reach_the_cuda_library(monkeypatch):
                       page_objs=2)
     ops.cat_decay(torch.zeros(4, 8, dtype=torch.bool), torch.zeros(4),
                   torch.ones(4, dtype=torch.int32), decay=0.5)
+    q = torch.randn(1, 4, 8)
+    summ = torch.randn(2, 4, 8)
+    frames = torch.randn(2, 3, 4, 8)
+    table = torch.tensor([[0, -1]], dtype=torch.int32)
+    ops.page_scores(q, summ, summ)
+    ops.paged_attention(q, frames, frames, table, table)
+    ops.cat_update(torch.zeros(4, 1, dtype=torch.int32), idx, page_objs=8)
     before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tscores.page_scores(q, summ, summ)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tpattn.paged_attention(q, frames, frames, table, table)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tcat_update.cat_update(torch.zeros(4, 1, dtype=torch.int32), idx,
+                               page_objs=8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tgather.gather_rows(pool, idx)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -157,7 +177,148 @@ def test_kernel_build_is_keyed_by_sources():
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     for name, pallas in [("gather_rows.cu", "gather_objects.py"),
                          ("compact_pages.cu", "compact.py"),
-                         ("cat_decay.cu", "cat_decay.py")]:
+                         ("cat_decay.cu", "cat_decay.py"),
+                         ("page_scores.cu", "topk_pages.py"),
+                         ("paged_attention.cu", "paged_attention.py"),
+                         ("cat_update.cu", "cat_update.py")]:
+        assert name in _build.SOURCES
         src = (_build.CSRC / name).read_text()
         assert pallas in src and "Bound" in src
         assert 'extern "C"' in src
+
+
+# --------------------------------------------------------------------------
+# the KV plane's kernels
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,kvh,g,dh,npg", [(2, 2, 4, 128, 128),
+                                            (1, 4, 2, 64, 256),
+                                            (3, 1, 1, 8, 16)])
+def test_page_scores_matches_pallas(b, kvh, g, dh, npg, qdtype):
+    """The plain version against ``repro.kernels.ref`` and the Pallas body
+    in interpret mode, within 1e-5 (relative to the largest score): the
+    sums over Dh run in other orders."""
+    q_j, q_t = _pair(RNG.randn(b, kvh * g, dh).astype(np.float32), qdtype)
+    kmax = RNG.randn(kvh, npg, dh).astype(np.float32)
+    kmin = kmax - np.abs(RNG.randn(kvh, npg, dh)).astype(np.float32)
+    got = _np(ops.page_scores(q_t, torch.from_numpy(kmax),
+                              torch.from_numpy(kmin)))
+    want_ref = _np(jref.page_scores_ref(q_j, jnp.asarray(kmax),
+                                        jnp.asarray(kmin)))
+    want_pallas = _np(scores_pallas(q_j.reshape(b, kvh, g, dh),
+                                    jnp.asarray(kmax), jnp.asarray(kmin),
+                                    block_pages=min(128, npg),
+                                    interpret=True))
+    assert got.shape == (b, kvh, npg)
+    tol = 1e-5 * np.abs(want_ref).max()
+    np.testing.assert_allclose(got, want_ref, rtol=0, atol=tol)
+    np.testing.assert_allclose(got, want_pallas, rtol=0, atol=tol)
+
+
+def test_page_scores_unwritten_pages_are_nan():
+    """An unwritten page (kmax -inf, kmin +inf) scores +inf, and NaN where
+    a q_d is 0, in both packages: the plane masks those pages."""
+    q = np.ones((1, 2, 8), np.float32)
+    q[0, 1, 3] = 0.0
+    kmax = np.full((1, 3, 8), -np.inf, np.float32)
+    kmin = np.full((1, 3, 8), np.inf, np.float32)
+    kmax[0, 0], kmin[0, 0] = 1.0, -1.0
+    got = _np(ops.page_scores(torch.from_numpy(q), torch.from_numpy(kmax),
+                              torch.from_numpy(kmin)))
+    want = _np(jref.page_scores_ref(jnp.asarray(q), jnp.asarray(kmax),
+                                    jnp.asarray(kmin)))
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(got[0, 0, 1:]).all() and got[0, 0, 0] == 8.0
+
+
+def _paged_inputs(b, kvh, g, dh, f, p, npg, empty):
+    q = RNG.randn(b, kvh * g, dh).astype(np.float32)
+    k = RNG.randn(kvh, f, p, dh).astype(np.float32)
+    v = RNG.randn(kvh, f, p, dh).astype(np.float32)
+    pt = np.full((b, npg), -1, np.int32)
+    pl_ = np.zeros((b, npg), np.int32)
+    for i in range(b):
+        if i in empty:
+            continue
+        n = RNG.randint(1, npg + 1)
+        pt[i, :n] = RNG.choice(f, n, replace=False)
+        pl_[i, :n] = RNG.randint(1, p + 1, size=n)
+    return q, k, v, pt, pl_
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,kvh,g,dh,f,p,npg", [(2, 2, 4, 128, 16, 16, 8),
+                                                (3, 1, 2, 64, 8, 8, 4),
+                                                (2, 4, 1, 8, 4, 4, 3)])
+def test_paged_attention_matches_pallas(b, kvh, g, dh, f, p, npg, dtype):
+    """The plain version against the Pallas body in interpret mode (out
+    within 2e-5 in f32 and 2e-2 in bf16, as tests/test_kernels.py holds
+    them; ``used`` equal), with the last sequence holding no valid row:
+    both give 0 there, where ``repro.kernels.ref`` gives NaN.  The other
+    sequences also match ``repro.kernels.ref``."""
+    q, k, v, pt, pl_ = _paged_inputs(b, kvh, g, dh, f, p, npg, {b - 1})
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(x, dtype) for x in (q, k, v))
+    out, used = ops.paged_attention(qt, kt, vt, torch.from_numpy(pt),
+                                    torch.from_numpy(pl_))
+    assert out.dtype == qt.dtype and used.dtype == torch.bool
+    okr, ukr = pattn_pallas(qj.reshape(b, kvh, g, dh), kj, vj,
+                            jnp.asarray(pt).reshape(-1),
+                            jnp.asarray(pl_).reshape(-1), interpret=True)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(_np(out), _np(okr).reshape(b, kvh * g, dh),
+                               rtol=tol, atol=tol)
+    np.testing.assert_array_equal(used.numpy(),
+                                  np.asarray(ukr).astype(bool).any(axis=1))
+    assert not _np(out)[b - 1].any() and not used[b - 1].any()
+    oref, uref = jref.paged_attention_ref(qj, kj, vj, jnp.asarray(pt),
+                                          jnp.asarray(pl_))
+    assert np.isnan(_np(oref)[b - 1]).all()
+    np.testing.assert_allclose(_np(out)[:b - 1], _np(oref)[:b - 1],
+                               rtol=tol, atol=tol)
+    np.testing.assert_array_equal(used.numpy(), np.asarray(uref))
+
+
+@pytest.mark.parametrize("v,p,r", [(16, 8, 24), (8, 64, 40), (5, 33, 12),
+                                   (4096, 8, 1024)])
+def test_cat_update_matches_pallas(v, p, r):
+    """Bits and CAR equal ``repro.kernels.ref`` and the Pallas body in
+    interpret mode, with duplicate touches, skipped (-1) ones and words
+    whose top bit is set (negative as int32)."""
+    w = -(-p // 32)
+    bits = RNG.randint(0, 2 ** 32, size=(v, w), dtype=np.uint64)
+    bits &= np.uint64(2 ** p - 1 if p < 32 else 2 ** 32 - 1)
+    bits = bits.astype(np.uint32)
+    vaddrs = RNG.randint(-1, v * p, size=r).astype(np.int32)
+    vaddrs[: r // 4] = vaddrs[r // 4: r // 2]        # duplicates
+    got_bits, got_car = ops.cat_update(torch.from_numpy(bits.view(np.int32)),
+                                       torch.from_numpy(vaddrs), page_objs=p)
+    assert got_bits.dtype == torch.int32
+    jb, jc = jops.cat_update(jnp.asarray(bits), jnp.asarray(vaddrs),
+                             page_objs=p, impl="ref")
+    pb, pc = jops.cat_update(jnp.asarray(bits), jnp.asarray(vaddrs),
+                             page_objs=p, impl="interpret")
+    for want_b, want_c in ((jb, jc), (pb, pc)):
+        np.testing.assert_array_equal(got_bits.numpy().view(np.uint32),
+                                      np.asarray(want_b))
+        np.testing.assert_array_equal(got_car.numpy(), np.asarray(want_c))
+
+
+def test_lengths_to_page_lens_matches_jax():
+    lengths = np.asarray([0, 1, 7, 8, 9, 31, 40], np.int32)
+    np.testing.assert_array_equal(
+        ops.lengths_to_page_lens(torch.from_numpy(lengths), 5, 8).numpy(),
+        np.asarray(jops.lengths_to_page_lens(jnp.asarray(lengths), 5, 8)))
+
+
+def test_paged_attention_split_rule():
+    """Pages split over blocks (flash-decoding) only when the (sequence,
+    kv head) pairs cannot fill the card: every page lands in one split."""
+    sms = 132                                          # H100 SXM
+    assert tpattn.split_pages(8, 64, sms) == (16, 4)       # sparse: 8 pairs
+    assert tpattn.split_pages(1024, 512, sms) == (1, 512)  # dense: 1024 pairs
+    assert tpattn.split_pages(160, 4, sms) == (1, 4)       # 40 x 4 pairs
+    assert tpattn.split_pages(8, 64, 114) == (13, 5)       # H100 PCIe
+    for pairs, n in [(2, 100), (3, 7), (100, 1000)]:
+        s, per = tpattn.split_pages(pairs, n, sms)
+        assert s * per >= n and (s - 1) * per < n
