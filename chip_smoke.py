@@ -23,9 +23,12 @@ Phases (any failure exits non-zero, with no result line):
  7. writes    update, read back; writeback + evict everything, read again
  8. invariants of the final full-size state
  9. kernels   page_scores, paged_attention (the long_500k sparse step and
-              the decode_32k batch) and cat_update against their plain
-              versions at llama3-8b's widths, with times, bounds and the
-              library call where there is one
+              the decode_32k batch; the other shapes either path takes;
+              granite-20b's and paligemma-3b's widths) and cat_update
+              against their plain versions at llama3-8b's widths, with
+              times, bounds and the library call where there is one; every
+              bf16 paged_attention call on the tensor cores, and a repeat
+              call the same bits
 10. kvoracle  at a small size: the KV plane's batched fetch executor
               against its reference executor, bit for bit (attend_sparse
               with each lookahead mode; sharded_sparse_decode, 2 shards)
@@ -33,10 +36,12 @@ Phases (any failure exits non-zero, with no result line):
               bf16): 128 attend_sparse steps, both kernels every step and
               checked against their plain versions on 23 of them; frames
               against the slab; PSF flips and packed fetches; a profile of
-              16 steps; 32 steps under set_sync_debug_mode("error")
+              16 steps (paged_attention one kernel a step, no combine
+              launch); 32 steps under set_sync_debug_mode("error")
 12. kvdense   llama3-8b decode_32k, one layer (B=128, 65,536 frames): 8
               append_dense + attend_dense steps against an f32
               recomputation on 4 sequences
+Every paged_attention launch of 11 and 12 is on the tensor cores.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA GPU and the repository's
@@ -71,6 +76,11 @@ PEAK_F32, PEAK_BF16 = 67e12, 989e12
 LLAMA_HEADS, LLAMA_KV_HEADS, LLAMA_HEAD_DIM, PAGE_TOKENS = 32, 8, 128, 64
 SPARSE_PAGES, SPARSE_FRAMES, SPARSE_TOPK, SPARSE_FETCH = 8192, 96, 64, 4
 DENSE_BATCH, DENSE_PAGES = 128, 512
+# the decode_32k sequences held to the plain version
+DENSE_CHECKED = [0, 1, 64, 127]
+# granite-20b (48 query heads over 1 kv head, head_dim 128) and paligemma-3b
+# (8 over 1, head_dim 256; src/repro/configs/): decode over 32 sequences
+WIDE_BATCH = 32
 KV_STEPS, KV_NOSYNC, DENSE_STEPS = 128, 32, 8
 # cat_update at the hybrid plane's CAT: 3,145,728 pages of 8 cards
 CAT_PAGES, CAT_CARDS, CAT_TOUCHES = 3_145_728, 8, 1024
@@ -472,6 +482,14 @@ def check_attention(torch, name, out_k, used_k, out_p, used_p, border):
     return err, int(diff.sum()), n_border
 
 
+def check_repeat(torch, ops, name, out, used, args):
+    """A second call on the same inputs gives the same bits."""
+    o2, u2 = ops.paged_attention(*args)
+    check(torch.equal(o2.view(torch.int16), out.view(torch.int16))
+          and torch.equal(u2, used),
+          f"{name}: a repeat call on the same inputs gave other bits")
+
+
 def sdpa_fn(torch, q, k, v):
     """One scaled_dot_product_attention call (GQA) on K/V already gathered
     contiguous ([B, KVH, L, Dh]); q [B, H, Dh]."""
@@ -533,11 +551,17 @@ def phase_kv_kernels(torch, ops, ref, card: str, rate: float) -> list:
     tables = [torch.randperm(F, generator=g, device=dev)[:K].to(
         torch.int32)[None] for _ in range(8)]
     lens = torch.full((1, K), P, dtype=torch.int32, device=dev)
+    from repro_torch.kernels import paged_attention as tpattn
+    n_mma = tpattn.launches_mma
     o_k, u_k = ops.paged_attention(qs[0], kf, vf, tables[0], lens)
+    check(tpattn.launches_mma == n_mma + 1,
+          "paged_attention (sparse): not launched on the tensor cores")
     o_p, u_p = ref.paged_attention_ref(qs[0], kf, vf, tables[0], lens)
     border = used_borderline(torch, qs[0], kf, vf, tables[0], lens)
     err, n_diff, n_border = check_attention(torch, "paged_attention (sparse)",
                                             o_k, u_k, o_p, u_p, border)
+    check_repeat(torch, ops, "paged_attention (sparse)", o_k, u_k,
+                 (qs[0], kf, vf, tables[0], lens))
     pq, pt = cyc(qs), cyc(tables)
     ms = device_ms(torch, lambda: ops.paged_attention(pq(), kf, vf, pt(),
                                                       lens))
@@ -560,23 +584,34 @@ def phase_kv_kernels(torch, ops, ref, card: str, rate: float) -> list:
                     "src/repro_torch/kernels/csrc/paged_attention.cu",
                     "src/repro/kernels/paged_attention.py:83", ms, plain_ms,
                     lib_ms, err, bnd)
+    rec["path"] = "mma"                # paged_attention's tensor-core path
     del kf, vf, kg, vg
 
     # ---- paged_attention at the other shapes the kernel takes: both
-    # dtypes, both group templates, staged and unstaged pages (the
-    # unstaged variant serves pages whose two buffers exceed 128 KB), one
-    # block per (sequence, kv head) and pages split over blocks (40 x 4
-    # pairs fill an H100's SMs, 3 x 2 do not), and a sequence with no
-    # valid row (0, not NaN)
-    from repro_torch.kernels import paged_attention as tpattn
+    # dtypes and both paths (the CUDA-core path for f32 and for bf16 pages
+    # of 128 rows, with staged and unstaged pages: the unstaged variant
+    # serves pages whose two buffers exceed 128 KB), one block per
+    # (sequence, kv head) and pages split over blocks (40 x 4 pairs fill
+    # an H100's SMs, 3 x 2 do not), granite-20b's 48 query heads over one
+    # kv head and paligemma-3b's head_dim 256 on the tensor cores, and a
+    # sequence with no valid row (0, not NaN)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n_single = 0
-    for dt, Pp, Dd, Gg, Bs, KVs in (
-            (torch.float32, 128, 256, 8, 3, 2), (bf16, 128, 256, 2, 3, 2),
-            (torch.float32, 64, 128, 4, 3, 2), (bf16, 16, 64, 1, 3, 2),
-            (torch.float32, 64, 128, 4, 40, 4), (bf16, 64, 128, 4, 40, 4)):
+    for dt, Pp, Dd, Gg, Bs, KVs, path in (
+            (torch.float32, 128, 256, 8, 3, 2, "cuda_core"),
+            (bf16, 128, 256, 2, 3, 2, "cuda_core"),
+            (torch.float32, 64, 128, 4, 3, 2, "cuda_core"),
+            (bf16, 16, 64, 1, 3, 2, "mma"),
+            (torch.float32, 64, 128, 4, 40, 4, "cuda_core"),
+            (bf16, 64, 128, 4, 40, 4, "mma"),
+            (bf16, 64, 128, 48, 2, 1, "mma"),
+            (bf16, 64, 256, 8, 2, 1, "mma")):
         Hs, Fs, NPs = KVs * Gg, 12, 6
-        n_single += tpattn.split_pages(Bs * KVs, NPs, sms)[0] == 1
+        check(tpattn.kernel_path(dt, dt, Gg, Dd, Pp) == path,
+              f"paged_attention: {dt} P={Pp} Dh={Dd} G={Gg} would not take "
+              f"the {path} path")
+        n_single += tpattn.launch_plan(path, Bs * KVs, NPs, sms, Gg, Dd,
+                                       Pp)[0] == 1
         kf = torch.randn((KVs, Fs, Pp, Dd), generator=g, device=dev, dtype=dt)
         vf = torch.randn((KVs, Fs, Pp, Dd), generator=g, device=dev, dtype=dt)
         qx = torch.randn((Bs, Hs, Dd), generator=g, device=dev, dtype=dt)
@@ -586,21 +621,75 @@ def phase_kv_kernels(torch, ops, ref, card: str, rate: float) -> list:
         tab[0, 2] = -1
         ln = torch.randint(0, Pp + 1, (Bs, NPs), generator=g, device=dev,
                            dtype=torch.int32)
+        n_mma = tpattn.launches_mma
         o_k, u_k = ops.paged_attention(qx, kf, vf, tab, ln)
+        check(tpattn.launches_mma - n_mma == (path == "mma"),
+              f"paged_attention: {dt} P={Pp} Dh={Dd} G={Gg} did not run "
+              f"on the {path} path")
         o_p, u_p = ref.paged_attention_ref(qx, kf, vf, tab, ln)
         border = used_borderline(torch, qx, kf, vf, tab, ln)
-        check_attention(torch, f"paged_attention ({dt}, P={Pp}, Dh={Dd}, "
-                               f"G={Gg})", o_k, u_k, o_p, u_p, border)
+        name = f"paged_attention ({dt}, P={Pp}, Dh={Dd}, G={Gg})"
+        check_attention(torch, name, o_k, u_k, o_p, u_p, border)
+        check_repeat(torch, ops, name, o_k, u_k, (qx, kf, vf, tab, ln))
         check(not bool(o_k[-1].any()), "paged_attention: an empty sequence "
                                        "did not give 0")
     check(n_single == 2, f"paged_attention: {n_single} of the other shapes "
                          f"ran unsplit on {sms} SMs, not 2")
-    log("[kernel] paged_attention also equal to plain at f32 P=128 Dh=256 "
-        "G=8, bf16 P=128 Dh=256 G=2 (unstaged pages), f32 P=64 Dh=128 G=4, "
-        "bf16 P=16 Dh=64 G=1 (3 sequences x 2 kv heads, split pages), f32 "
-        "and bf16 P=64 Dh=128 G=4 (40 sequences x 4 kv heads, one block "
-        "each), with an empty sequence giving 0")
+    log("[kernel] paged_attention also equal to plain, and the same bits "
+        "on a repeat call, at f32 P=128 Dh=256 G=8, bf16 P=128 Dh=256 G=2 "
+        "(CUDA cores, unstaged pages), f32 P=64 Dh=128 G=4, bf16 P=16 "
+        "Dh=64 G=1 (3 sequences x 2 kv heads, split pages), f32 and bf16 "
+        "P=64 Dh=128 G=4 (40 sequences x 4 kv heads, one block each), bf16 "
+        "P=64 Dh=128 G=48 and Dh=256 G=8 (2 sequences x 1 kv head, tensor "
+        "cores), with an empty sequence giving 0")
     del kf, vf
+
+    # ---- paged_attention at granite-20b's and paligemma-3b's widths:
+    # decode over 32 sequences of 32,768 tokens, one kv head
+    for label, Gg, Dd in (("granite-20b G=48 Dh=128", 48, 128),
+                          ("paligemma-3b G=8 Dh=256", 8, 256)):
+        Bw, NPw = WIDE_BATCH, DENSE_PAGES
+        Fw = Bw * NPw
+        kf = torch.randn((1, Fw + 1, P, Dd), generator=g, device=dev,
+                         dtype=bf16)
+        vf = torch.randn((1, Fw + 1, P, Dd), generator=g, device=dev,
+                         dtype=bf16)
+        table = torch.arange(Fw, dtype=torch.int32, device=dev).view(Bw, NPw)
+        lens = torch.full((Bw, NPw), P, dtype=torch.int32, device=dev)
+        qw = torch.randn((Bw, Gg, Dd), generator=g, device=dev, dtype=bf16)
+        n_mma = tpattn.launches_mma
+        o_k, u_k = ops.paged_attention(qw, kf, vf, table, lens)
+        check(tpattn.launches_mma == n_mma + 1,
+              f"paged_attention ({label}): not on the tensor cores")
+        sel = torch.tensor([0, Bw - 1], device=dev)
+        o_p, u_p = ref.paged_attention_ref(qw[sel], kf, vf, table[sel],
+                                           lens[sel])
+        border = used_borderline(torch, qw[sel], kf, vf, table[sel],
+                                 lens[sel])
+        err_w, _, _ = check_attention(
+            torch, f"paged_attention ({label}, sequences 0 and {Bw - 1})",
+            o_k[sel], u_k[sel], o_p, u_p, border)
+        ms_w = device_ms(torch, lambda: ops.paged_attention(
+            qw, kf, vf, table, lens), n=10, rounds=3)
+        kg = kf[:, :Fw].view(1, Bw, NPw * P, Dd).transpose(0, 1).contiguous()
+        vg = vf[:, :Fw].view(1, Bw, NPw * P, Dd).transpose(0, 1).contiguous()
+        lib_w = device_ms(torch, sdpa_fn(torch, qw, kg, vg), n=10, rounds=3)
+        del kg, vg
+        L = NPw * P
+        nbytes = 2 * Bw * L * Dd * 2 + 2 * Bw * Gg * Dd * 2 + Bw * NPw * P \
+            + 8 * Bw * NPw
+        bnd_w = bound(nbytes, 4 * Gg * Dd * L * Bw, rate, PEAK_BF16)
+        log(f"[kernel] paged_attention {label} (B={Bw} x {L} tokens, one kv "
+            f"head, bf16): max abs err {err_w:.3g} on 2 sequences "
+            f"(tolerance 2e-2 x the largest output); {ms_w * 1e3:.2f} us "
+            f"(library scaled_dot_product_attention on K/V gathered "
+            f"contiguous {lib_w * 1e3:.2f} us, bound {bnd_w[0] * 1e3:.2f} us "
+            f"by {bnd_w[1]}) [{card}]")
+        key = "g48" if Gg == 48 else "dh256"
+        rec.update({f"{key}_ms": ms_w, f"{key}_library_ms": lib_w,
+                    f"{key}_bound_ms": bnd_w[0], f"{key}_max_abs_err": err_w})
+        del kf, vf
+        torch.cuda.empty_cache()
 
     # ---- paged_attention, dense decode_32k: B=128, 512 pages each ---------
     B, NPd = DENSE_BATCH, DENSE_PAGES
@@ -613,18 +702,25 @@ def phase_kv_kernels(torch, ops, ref, card: str, rate: float) -> list:
     table = torch.arange(Fd, dtype=torch.int32, device=dev).view(B, NPd)
     lens = torch.full((B, NPd), P, dtype=torch.int32, device=dev)
     qd = torch.randn((B, H, Dh), generator=g, device=dev, dtype=bf16)
+    n_mma = tpattn.launches_mma
     o_k, u_k = ops.paged_attention(qd, kf, vf, table, lens)
-    n4 = 4
-    o_p, u_p = ref.paged_attention_ref(qd[:n4], kf, vf, table[:n4],
-                                       lens[:n4])
-    border = used_borderline(torch, qd[:n4], kf, vf, table[:n4], lens[:n4])
+    check(tpattn.launches_mma == n_mma + 1,
+          "paged_attention (dense): not launched on the tensor cores")
+    # four sequences spread over the batch, so a fault in how blocks map to
+    # sequences cannot hide past the first few
+    sel = torch.tensor(DENSE_CHECKED, device=dev)
+    o_p, u_p = ref.paged_attention_ref(qd[sel], kf, vf, table[sel],
+                                       lens[sel])
+    border = used_borderline(torch, qd[sel], kf, vf, table[sel], lens[sel])
     err_d, n_diff, n_border = check_attention(
-        torch, "paged_attention (dense, 4 of 128 sequences)", o_k[:n4],
-        u_k[:n4], o_p, u_p, border)
+        torch, f"paged_attention (dense, sequences {DENSE_CHECKED})",
+        o_k[sel], u_k[sel], o_p, u_p, border)
+    check_repeat(torch, ops, "paged_attention (dense)", o_k, u_k,
+                 (qd, kf, vf, table, lens))
     ms_d = device_ms(torch, lambda: ops.paged_attention(qd, kf, vf, table,
                                                         lens), n=5, rounds=3)
     plain4_ms = device_ms(torch, lambda: ref.paged_attention_ref(
-        qd[:n4], kf, vf, table[:n4], lens[:n4]), n=3, rounds=3)
+        qd[sel], kf, vf, table[sel], lens[sel]), n=3, rounds=3)
     kg = kf[:, :Fd].view(KVH, B, NPd * P, Dh).transpose(0, 1).contiguous()
     vg = vf[:, :Fd].view(KVH, B, NPd * P, Dh).transpose(0, 1).contiguous()
     lib_d = device_ms(torch, sdpa_fn(torch, qd, kg, vg), n=5, rounds=3)
@@ -634,8 +730,9 @@ def phase_kv_kernels(torch, ops, ref, card: str, rate: float) -> list:
         + 8 * B * NPd
     bnd_d = bound(nbytes, 4 * G * Dh * L * KVH * B, rate, PEAK_BF16)
     log(f"[kernel] paged_attention dense (decode_32k, B={B} x {L} tokens, "
-        f"bf16): max abs err {err_d:.3g} on 4 sequences (tolerance 2e-2 x "
-        f"the largest output), "
+        f"bf16): max abs err {err_d:.3g} on sequences {DENSE_CHECKED} "
+        f"(tolerance 2e-2 x the largest output), the same bits on a repeat "
+        f"call, "
         f"used differs on {n_diff} rows, {n_border} borderline; "
         f"{ms_d:.3f} ms (plain version on 4 of the 128 sequences "
         f"{plain4_ms:.3f} ms, library scaled_dot_product_attention on K/V "
@@ -872,6 +969,10 @@ def phase_kv_sparse(torch, ops, ref, tkv, card: str):
         check(launches[k] == KV_STEPS,
               f"kvsparse: {k} launched {launches[k]} times in {KV_STEPS} "
               f"steps")
+    check(launches["paged_attention_mma"] == launches["paged_attention"],
+          f"kvsparse: {launches['paged_attention_mma']} of "
+          f"{launches['paged_attention']} paged_attention launches on the "
+          f"tensor cores")
     check(launches["gather_rows"] > 0, "kvsparse: no page-in gather")
     worst_ps = worst_pa = 0.0
     n_border = n_diff = 0
@@ -927,6 +1028,10 @@ def phase_kv_sparse_tail(torch, tkv, cfg, s, qs, lengths, card: str) -> None:
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(r[0] for r in rows) / 1e6 / 16
+    attn = [r for r in rows if "paged_attention" in r[2] or "combine" in r[2]]
+    check(len(attn) == 1 and attn[0][1] == 16,
+          f"kvsparse: paged_attention is not one kernel launch a step: "
+          f"{[(r[2][:60], r[1]) for r in attn]}")
     n_ops = sum(r[1] for r in rows) / 16
     log(f"[kvsparse] profile over 16 steps: wall {wall * 1e3:.3f} ms/step, "
         f"device busy {busy * 1e3:.3f} ms/step ({100 * busy / wall:.1f}% of "
@@ -998,6 +1103,10 @@ def phase_kv_dense(torch, ops, ref, tkv, card: str) -> dict:
     check(launches["paged_attention"] == DENSE_STEPS,
           f"kvdense: paged_attention launched {launches['paged_attention']} "
           f"times in {DENSE_STEPS} steps")
+    check(launches["paged_attention_mma"] == launches["paged_attention"],
+          f"kvdense: {launches['paged_attention_mma']} of "
+          f"{launches['paged_attention']} paged_attention launches on the "
+          f"tensor cores")
     check(bool(s.psf[:-1].all()) and bool(s.cat[:-1].all()),
           "kvdense: a page left the paging path or a card stayed unmarked")
     log(f"[kvdense] {DENSE_STEPS} steps of append_dense + attend_dense: "
@@ -1180,6 +1289,7 @@ def main() -> int:
     pa = next(k for k in kernels if k["name"] == "paged_attention")
     pa["dense_launches_per_step"] = (dense_launches["paged_attention"]
                                      / DENSE_STEPS)
+    pa["launches_mma"] = kv_launches["paged_attention_mma"]
 
     log(f"[done] {time.time() - t_start:.1f}s [{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)

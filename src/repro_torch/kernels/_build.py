@@ -117,6 +117,13 @@ def load_library() -> ctypes.CDLL:
             I32, P, I32, P, P, I32, P, P, P, P, P, P, P, I64, I32, I32, I32,
             I64, I32, I32, I32, I32, ctypes.c_float, P]
         lib.repro_paged_attention.restype = I32
+        # (device, q, k, v, page_table, page_lens, out, used, m_part,
+        #  l_part, acc_part, counters, B, KVH, G, Dh, F, P, NP, splits,
+        #  pages_per_split, m_tiles, teams, scale, stream)
+        lib.repro_paged_attention_mma.argtypes = [
+            I32, P, P, P, P, P, P, P, P, P, P, P, I64, I32, I32, I32, I64,
+            I32, I32, I32, I32, I32, I32, ctypes.c_float, P]
+        lib.repro_paged_attention_mma.restype = I32
         # (device, bits_in, vaddrs, bits_out, car, V, W, R, page_objs, stream)
         lib.repro_cat_update.argtypes = [I32, P, P, P, P, I64, I32, I64, I32,
                                          P]

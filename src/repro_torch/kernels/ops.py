@@ -37,13 +37,17 @@ def _kernel(t: torch.Tensor, impl: str) -> bool:
 
 
 def launch_counts() -> dict:
-    """Kernel launches per kernel since the last reset."""
-    return {k: m.launches for k, m in _KERNEL_MODULES.items()}
+    """Kernel launches per kernel since the last reset, and under
+    ``paged_attention_mma`` those of paged_attention on the tensor cores."""
+    counts = {k: m.launches for k, m in _KERNEL_MODULES.items()}
+    counts["paged_attention_mma"] = _paged_attn_mod.launches_mma
+    return counts
 
 
 def reset_launch_counts() -> None:
     for m in _KERNEL_MODULES.values():
         m.launches = 0
+    _paged_attn_mod.launches_mma = 0
 
 
 def gather_rows(pool, idx, *, impl="auto", masked=True):

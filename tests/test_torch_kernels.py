@@ -6,6 +6,10 @@ port's plain PyTorch version, which is what ``repro_torch.kernels.ops``
 runs for a CPU tensor.  The CUDA kernels themselves run only on the card
 and are held against these plain versions by ``chip_smoke.py``.
 """
+import importlib.util
+import math
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +31,16 @@ from repro_torch.kernels import paged_attention as tpattn
 from repro_torch.kernels import topk_pages as tscores
 
 RNG = np.random.RandomState(0)
+
+
+def _chip_smoke():
+    """chip_smoke.py's tolerance helpers (the script imports nothing at
+    module level beyond the standard library)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _pair(x: np.ndarray, dtype: str):
@@ -250,7 +264,9 @@ def _paged_inputs(b, kvh, g, dh, f, p, npg, empty):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,kvh,g,dh,f,p,npg", [(2, 2, 4, 128, 16, 16, 8),
                                                 (3, 1, 2, 64, 8, 8, 4),
-                                                (2, 4, 1, 8, 4, 4, 3)])
+                                                (2, 4, 1, 8, 4, 4, 3),
+                                                (2, 1, 48, 128, 6, 8, 4),
+                                                (2, 1, 8, 256, 6, 8, 4)])
 def test_paged_attention_matches_pallas(b, kvh, g, dh, f, p, npg, dtype):
     """The plain version against the Pallas body in interpret mode (out
     within 2e-5 in f32 and 2e-2 in bf16, as tests/test_kernels.py holds
@@ -309,6 +325,147 @@ def test_lengths_to_page_lens_matches_jax():
     np.testing.assert_array_equal(
         ops.lengths_to_page_lens(torch.from_numpy(lengths), 5, 8).numpy(),
         np.asarray(jops.lengths_to_page_lens(jnp.asarray(lengths), 5, 8)))
+
+
+def _mma_emulation(q, k, v, pt, pl, splits, per, teams):
+    """The tensor-core path's arithmetic in plain PyTorch: per team an
+    online softmax in base 2 over its pages (scores q.k in f32, scaled
+    after the product), p rounded to bf16 before P.V while l and the card
+    signal take the f32 p, the teams and then the splits combined in
+    order, the output rounded to q's dtype."""
+    B, H, Dh = q.shape
+    KVH, F, P, _ = k.shape
+    NP = pt.shape[1]
+    G = H // KVH
+    f32 = torch.float32
+    scale2 = (torch.tensor(1.0 / math.sqrt(Dh), dtype=f32)
+              * torch.tensor(1.4426950408889634, dtype=f32))
+    qf = q.to(f32).view(B, KVH, G, Dh)
+    used = torch.zeros((B, NP, P), dtype=torch.bool)
+    rowi = torch.arange(P)
+
+    def combine(parts):
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        l, acc = torch.zeros_like(mx), torch.zeros_like(parts[0][2])
+        for m, lp, ap in parts:
+            w = torch.exp2(m - mx)
+            l, acc = l + w * lp, acc + w[..., None] * ap
+        return mx, l, acc
+
+    splits_out = []
+    for sp in range(splits):
+        team_parts = []
+        for t in range(teams):
+            m = torch.full((B, KVH, G), -1e30, dtype=f32)
+            l = torch.zeros((B, KVH, G), dtype=f32)
+            acc = torch.zeros((B, KVH, G, Dh), dtype=f32)
+            for j in range(sp * per + t, min(NP, (sp + 1) * per), teams):
+                frame, rows = pt[:, j].long(), pl[:, j].clamp(max=P)
+                live = (frame >= 0) & (rows > 0)
+                kp = k[:, frame.clamp(min=0)].to(f32).transpose(0, 1)
+                vp = v[:, frame.clamp(min=0)].to(f32).transpose(0, 1)
+                valid = (rowi[None] < rows[:, None]) & live[:, None]
+                vm = valid[:, None, None]
+                s = torch.einsum("bkgd,bkpd->bkgp", qf, kp) * scale2
+                s = torch.where(vm, s, torch.tensor(-1e30))
+                mn = torch.maximum(m, s.amax(-1))
+                al = torch.exp2(m - mn)
+                p = torch.where(vm, torch.exp2(s - mn[..., None]), 0.0)
+                mass = p.sum(-1)
+                used[:, j] |= (p * P > mass[..., None]).any(2).any(1) & valid
+                pv = torch.einsum("bkgp,bkpd->bkgd",
+                                  p.to(torch.bfloat16).to(f32), vp)
+                up = live[:, None, None]
+                m = torch.where(up, mn, m)
+                l = torch.where(up, al * l + mass, l)
+                acc = torch.where(up[..., None], al[..., None] * acc + pv,
+                                  acc)
+            team_parts.append((m, l, acc))
+        splits_out.append(combine(team_parts))
+    _, l, acc = combine(splits_out)
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, H, Dh).to(q.dtype), used
+
+
+@pytest.mark.parametrize("b,kvh,splits,per,teams", [(1, 8, 16, 4, 4),
+                                                    (3, 2, 1, 64, 1)])
+def test_paged_attention_mma_rounding_within_tolerance(b, kvh, splits, per,
+                                                       teams):
+    """The tensor-core path's rounding (p in bf16 for P.V, l and the card
+    signal from the f32 p, base-2 exponentials) stays within chip_smoke's
+    unchanged ``attention_tol`` of the plain version at decode-like shapes
+    (G=4, Dh=128, P=64, 64 pages, bf16): the long_500k sparse split
+    (16 splits x 4 teams) and an unsplit dense block; ``used`` equal except
+    on rows within rounding of the threshold, as chip_smoke counts them."""
+    smoke = _chip_smoke()
+    g, dh, p, npg, f = 4, 128, 64, 64, 80
+    q = torch.from_numpy(RNG.randn(b, kvh * g, dh).astype(np.float32)).to(
+        torch.bfloat16)
+    k = torch.from_numpy(RNG.randn(kvh, f, p, dh).astype(np.float32)).to(
+        torch.bfloat16)
+    v = torch.from_numpy(RNG.randn(kvh, f, p, dh).astype(np.float32)).to(
+        torch.bfloat16)
+    pt = np.stack([RNG.choice(f, npg, replace=False) for _ in range(b)])
+    pl_ = np.full((b, npg), p)
+    pt[0, 5], pl_[0, 7], pl_[-1, 9] = -1, 17, 0          # gaps and a partial
+    pt, pl_ = (torch.from_numpy(x.astype(np.int32)) for x in (pt, pl_))
+    assert tpattn.kernel_path(q.dtype, k.dtype, g, dh, p) == "mma"
+    out, used = _mma_emulation(q, k, v, pt, pl_, splits, per, teams)
+    oref, uref = ref.paged_attention_ref(q, k, v, pt, pl_)
+    tol = smoke.attention_tol(torch, oref)
+    assert float((out.float() - oref.float()).abs().max()) <= tol
+    border = smoke.used_borderline(torch, q, k, v, pt, pl_)
+    assert not bool(((used != uref) & ~border).any())
+    assert bool(uref.any())
+
+
+def test_paged_attention_path_choice():
+    """The wrapper picks its path from dtypes and shapes alone: every bf16
+    configuration of the repo (llama3-8b's G=4/Dh=128/P=64, granite-20b's
+    G=48, paligemma-3b's Dh=256) takes the tensor cores; f32, mixed
+    dtypes, Dh=8 and bf16 pages of 128 rows take the CUDA cores; G=48 in
+    f32 and shapes neither path takes raise."""
+    bf, f32 = torch.bfloat16, torch.float32
+    path = tpattn.kernel_path
+    assert path(bf, bf, 4, 128, 64) == "mma"
+    assert path(bf, bf, 48, 128, 64) == "mma"
+    assert path(bf, bf, 8, 256, 64) == "mma"
+    assert path(bf, bf, 64, 256, 16) == "mma"
+    assert path(f32, f32, 4, 128, 64) == "cuda_core"
+    assert path(bf, f32, 4, 128, 64) == "cuda_core"
+    assert path(f32, bf, 4, 128, 64) == "cuda_core"
+    assert path(bf, bf, 4, 8, 64) == "cuda_core"
+    assert path(bf, bf, 2, 256, 128) == "cuda_core"
+    for args in [(f32, f32, 48, 128, 64), (bf, bf, 65, 128, 64),
+                 (bf, bf, 4, 264, 64), (bf, bf, 16, 128, 128),
+                 (torch.float16, torch.float16, 4, 128, 64)]:
+        with pytest.raises(ValueError):
+            path(*args)
+
+
+def test_paged_attention_mma_launch_plan():
+    """The tensor-core path's blocks: one warp per 16 query heads; one team
+    a block over all of a pair's pages when the pairs fill the card (the
+    decode_32k batch), otherwise up to four teams a block and the pages
+    split so the blocks fill every SM once (the long_500k sparse step: one
+    page a warp); every block within the card's threads and shared memory,
+    and every page in exactly one split."""
+    plan = tpattn.launch_plan
+    sms = 132                                                # H100 SXM
+    assert plan("mma", 8, 64, sms, 4, 128, 64) == (16, 4, 1, 4)
+    assert plan("mma", 1024, 512, sms, 4, 128, 64) == (1, 512, 1, 1)
+    assert plan("mma", 160, 6, sms, 4, 128, 64) == (1, 6, 1, 1)
+    assert plan("mma", 32, 512, sms, 48, 128, 64) == (8, 64, 3, 2)
+    assert plan("mma", 32, 512, sms, 8, 256, 64) == (4, 128, 1, 2)
+    assert plan("cuda_core", 8, 64, sms, 4, 128, 64) == (16, 4, 0, 0)
+    for pairs, n, g, dh, p in [(8, 64, 4, 128, 64), (2, 6, 48, 128, 64),
+                               (3, 7, 64, 256, 64), (1, 1000, 1, 16, 16),
+                               (100, 3, 20, 96, 40), (131, 512, 8, 256, 64)]:
+        s, per, mt, teams = plan("mma", pairs, n, sms, g, dh, p)
+        assert s * per >= n and (s - 1) * per < n
+        assert 16 * mt >= g > 16 * (mt - 1) and 32 * mt * teams <= 256
+        assert tpattn._mma_stage_bytes(mt, teams, dh, p) <= tpattn.MMA_SMEM
+        assert teams == 1 or s > 1
 
 
 def test_paged_attention_split_rule():
