@@ -3,25 +3,43 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --profile  # plus a torch.profiler breakdown of
-                                     # 16 serving ticks
+                                     # one evacuation and one epoch
 
 Phases (any failure exits non-zero, with no result line):
 
  1. device    the card's name and power limit (nvidia-smi)
  2. build     the CUDA kernels, compiled from src/repro_torch/kernels/csrc
  3. kernels   each CUDA kernel against its plain PyTorch version on the
-              card, at the shapes the serving path gives it, with times
+              card, at the shapes the serving path gives it, with times;
+              the per-launch floor (an empty kernel timed the same way)
  4. oracles   at 512 objects: the batched executor against the scalar
               reference executor, bit for bit, on mcd_cl and df_scan traffic
               with evacuations and epochs; a pipelined engine against a
               sync engine
  5. serve     8,388,608 objects through the launcher's plane recipe and the
               pipelined engine, 256 ticks of mcd_cl at batch 1024; every
-              served row checked on the card against the data
+              served row checked on the card against the data; a profile
+              of 16 ticks (device operations per tick)
  6. no sync   50 more ticks of plan/execute/evacuate/epoch under
               torch.cuda.set_sync_debug_mode("error")
  7. writes    update, read back; writeback + evict everything, read again
  8. invariants of the final full-size state
+    paging    the paging plane (Fastswap analogue), then
+    object    the object plane (AIFM analogue), each as in 5 (same data,
+              ticks and checks) under set_sync_debug_mode("error"), the
+              object plane's reclaim reads alone excepted and counted;
+              launches and device operations per tick
+    reclaim   the object plane at 65,536 objects until 1,000 objects are
+              evicted, full LRU scan and a 4,096-object window: batch ==
+              reference executor on a clone, every row and field, and the
+              card's state == a CPU run of the same ticks; time per
+              reclaim round
+    robust    the hybrid engine at full size (as 5) through fig_faults'
+              scenarios, dispatch="sync": fault-free, 20% failures with
+              retries (and its same-seed replay: identical counters), a
+              total outage with the circuit breaker; every served row
+              checked, every offered request served or shed exactly once,
+              the breaker trips and closes; p99 beside the fault-free p99
  9. kernels   page_scores, paged_attention (the long_500k sparse step and
               the decode_32k batch; the other shapes either path takes;
               granite-20b's and paligemma-3b's widths) and cat_update
@@ -82,6 +100,13 @@ DENSE_CHECKED = [0, 1, 64, 127]
 # (8 over 1, head_dim 256; src/repro/configs/): decode over 32 sequences
 WIDE_BATCH = 32
 KV_STEPS, KV_NOSYNC, DENSE_STEPS = 128, 32, 8
+# the object plane's reclaim run: the launcher's recipe cut to 65,536
+# objects (2,048 frames, filled after ~160 ticks of mcd_cl), run until at
+# least 1,000 objects were evicted; the windowed LRU scans 4,096 objects
+RECLAIM_OBJECTS, RECLAIM_MIN, RECLAIM_BUDGET = 65_536, 1000, 4096
+RECLAIM_MAX_TICKS = 240
+# the robust engine's runs (fig_faults' scenarios): ticks per run
+ROBUST_TICKS = 120
 # cat_update at the hybrid plane's CAT: 3,145,728 pages of 8 cards
 CAT_PAGES, CAT_CARDS, CAT_TOUCHES = 3_145_728, 8, 1024
 
@@ -143,8 +168,9 @@ def phase_device(torch) -> tuple[str, str]:
     card = smi.stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
     log(f"[device] {card}")
+    import numpy
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
-        f"devices={torch.cuda.device_count()}")
+        f"numpy {numpy.__version__} devices={torch.cuda.device_count()}")
     return name, card
 
 
@@ -272,6 +298,18 @@ def phase_kernels(torch, ops, ref, state, card: str, rate: float) -> list:
            ref.compact_pages_ref(frame_rows, plan, P),
            cvalid * row_b + 4 * P * row_b + 4 * P * 4)
 
+    # the per-launch floor: an empty kernel (torch.cuda._sleep(0)) timed
+    # the same way, back to back on the device
+    floor_ms = device_ms(torch, lambda: torch.cuda._sleep(0))
+    gr, cp = results[0], results[1]
+    for r in (gr, cp):
+        r["launch_floor_ms"] = floor_ms
+    log(f"[kernel] launch floor, an empty kernel (torch.cuda._sleep(0)) back "
+        f"to back: {floor_ms * 1e3:.2f} us; beside it gather_rows "
+        f"{gr['ms'] * 1e3:.2f} us (index_select {gr['library_ms'] * 1e3:.2f} "
+        f"us), compact_pages {cp['ms'] * 1e3:.2f} us (index_select "
+        f"{cp['library_ms'] * 1e3:.2f} us) [{card}]")
+
     # cat_decay: V=3,145,728 pages of P=8 cards
     cat = torch.rand((V, P), generator=g, device=dev) < 0.3
     ema = torch.rand((V,), generator=g, device=dev)
@@ -367,51 +405,345 @@ def phase_oracles(torch, m) -> None:
     log("[oracle] stable sort keeps ties in index order on the card")
 
 
-def phase_profile(torch, plane, eng, ids_all, first: int, n: int,
-                  card: str):
-    """Where the serving time goes, under torch.profiler: ``n`` sync ticks
-    (device time by kernel, device operations, the device's busy share of
-    the wall time), then one foreground evacuation and one epoch."""
+def profiled(torch, fn, reps):
+    """``reps`` calls of ``fn`` under torch.profiler: (wall s, device busy
+    s, device operations, each per call; rows of (device us, count, name)
+    over the run)."""
     from torch.profiler import ProfilerActivity, profile
-
-    def profiled(fn, reps):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.time()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-        rows = []  # device-side events only: each kernel and memcpy once
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                rows.append((getattr(e, "self_device_time_total",
-                                     getattr(e, "self_cuda_time_total", 0)),
-                             e.count, e.key))
-        busy = sum(r[0] for r in rows) / 1e6
-        ops = sum(r[1] for r in rows)
-        return wall / reps, busy / reps, ops / reps, rows
+        wall = time.time() - t0
+    rows = []  # device-side events only: each kernel and memcpy once
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0)),
+                         e.count, e.key))
+    busy = sum(r[0] for r in rows) / 1e6
+    ops = sum(r[1] for r in rows)
+    return wall / reps, busy / reps, ops / reps, rows
 
+
+def profile_ticks(torch, eng, ids_all, first: int, n: int, card: str,
+                  tag: str, top: int = 12) -> float:
+    """Where the serving time goes: ``n`` sync ticks under torch.profiler
+    (device time by kernel, device operations, the device's busy share of
+    the wall time).  Returns the device operations per tick."""
     ticks = iter(range(first, first + n))
 
     def tick():
         eng.submit(ids_all[next(ticks)])
         eng.drain()
-    wall, busy, ops, rows = profiled(tick, n)
-    log(f"[profile] {n} sync ticks: wall {wall * 1e3:.2f} ms/tick, device "
-        f"busy {busy * 1e3:.3f} ms/tick ({100 * busy / wall:.1f}% of wall), "
-        f"{ops:.0f} device ops/tick [{card}]")
-    for dev, count, key in sorted(rows, reverse=True)[:12]:
-        log(f"[profile]   {dev / 1e3 / n:8.3f} ms/tick {count / n:7.1f} "
+    wall, busy, ops, rows = profiled(torch, tick, n)
+    log(f"[{tag}] profile of {n} sync ticks: wall {wall * 1e3:.2f} ms/tick, "
+        f"device busy {busy * 1e3:.3f} ms/tick ({100 * busy / wall:.1f}% of "
+        f"wall), {ops:.0f} device ops/tick [{card}]")
+    for dev, count, key in sorted(rows, reverse=True)[:top]:
+        log(f"[{tag}]   {dev / 1e3 / n:8.3f} ms/tick {count / n:7.1f} "
             f"per tick  {key[:90]}")
+    return ops
+
+
+def phase_profile(torch, plane, eng, card: str):
+    """One foreground evacuation and one epoch under torch.profiler."""
     for name, fn in (("evacuate (16 victims)",
                       lambda: plane.evacuate(eng.pcfg, eng.state)),
                      ("advance_epoch",
                       lambda: plane.advance_epoch(eng.pcfg, eng.state))):
-        wall, busy, ops, _ = profiled(fn, 1)
+        wall, busy, ops, _ = profiled(torch, fn, 1)
         log(f"[profile] {name}: wall {wall * 1e3:.2f} ms, device busy "
             f"{busy * 1e3:.3f} ms, {ops:.0f} device ops [{card}]")
+
+
+# --------------------------------------------------------------------------
+# the baseline planes and the robust engine at the store's full size
+# --------------------------------------------------------------------------
+
+class counted_reads:
+    """set_sync_debug_mode("error") around a block, except inside the
+    object plane's reclaim reads (``ObjectReclaim._read``, which count
+    themselves): any other host read in the block fails the run."""
+
+    def __init__(self, torch, baselines):
+        self.torch, self.cls = torch, baselines.ObjectReclaim
+        self.orig = self.cls._read
+
+    def __enter__(self):
+        torch, orig = self.torch, self.orig
+
+        def read(rec, cfg, s):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return orig(rec, cfg, s)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        self.cls._read = read
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode(0)
+        self.cls._read = self.orig
+        return False
+
+
+def phase_baseline(torch, m, ops, plane: str, data_t, ids_all,
+                   card: str) -> tuple[dict, float]:
+    """The paging or object plane through the launcher's recipe and the
+    pipelined engine: SERVE_TICKS ticks of mcd_cl under
+    set_sync_debug_mode("error") (the object plane's reclaim reads alone
+    excepted, and counted), every served row checked on the card, then 16
+    profiled ticks.  Returns (launch counts of the run, device ops/tick)."""
+    dev = torch.device("cuda")
+    pcfg = m.serve.kv_plane_config(OBJECTS, 0.25)
+    t0 = time.time()
+    eng = m.engine.Engine(m.engine.EngineConfig(
+        plane=plane, batch=BATCH, dispatch="pipelined"), pcfg, data_t,
+        device=dev)
+    torch.cuda.synchronize()
+    log(f"[{plane}] plane: {OBJECTS} objects, slab "
+        f"{tuple(eng.state.slab.shape)}, frames "
+        f"{tuple(eng.state.frames.shape)}, set up in {time.time() - t0:.1f}s")
+    rec = eng.reclaim
+    reads0, rounds0 = (rec.reads, rec.rounds) if rec else (0, 0)
+    mism = torch.zeros((), dtype=torch.int64, device=dev)
+    eng.latency = m.engine.LatencyTracker()
+    tick_ms = []
+    ops.reset_launch_counts()
+    with counted_reads(torch, m.baselines):
+        t0 = time.time()
+        for t in range(SERVE_TICKS):
+            ts = time.time()
+            rows = eng.submit(ids_all[t])
+            mism += (rows != data_t[ids_all[t]]).any(dim=1).sum()
+            tick_ms.append((time.time() - ts) * 1e3)
+        eng.drain()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    launches = ops.launch_counts()
+    n_mism = int(mism)
+    stats = {k: int(v) for k, v in eng.state.stats._asdict().items()}
+    lat = eng.latency.summary()
+    log(f"[{plane}] {SERVE_TICKS} ticks x {BATCH} requests (mcd_cl) in "
+        f"{wall:.3f}s: {SERVE_TICKS * BATCH / wall:.0f} requests/s, batch "
+        f"latency p50 {lat['p50_us']:.0f} us p99 {lat['p99_us']:.0f} us, "
+        f"host submit p50 {statistics.median(tick_ms):.2f} ms [{card}]")
+    log(f"[{plane}] stats {stats}")
+    log(f"[{plane}] kernel launches {launches} "
+        f"({ {k: v / SERVE_TICKS for k, v in launches.items()} } per tick)")
+    check(n_mism == 0, f"{plane}: {n_mism} served rows differ from the data")
+    if plane == "paging":
+        check(stats["page_ins"] > 0 and stats["obj_ins"] == 0,
+              "paging: no page-in, or an object fetch")
+    else:
+        check(stats["obj_ins"] > 0 and stats["page_ins"] == 0,
+              "object: no object fetch, or a page-in")
+        log(f"[{plane}] reclaim host reads in the run: "
+            f"{rec.reads - reads0}, reclaim rounds {rec.rounds - rounds0}")
+    check(launches["gather_rows"] > 0, f"{plane}: gather_rows never launched")
+    log(f"[{plane}] 0 of {SERVE_TICKS * BATCH} served rows differ from the "
+        f"data; no host sync under set_sync_debug_mode('error')")
+    n_ops = profile_ticks(torch, eng, ids_all, SERVE_TICKS, 16, card, plane,
+                          top=8)
+    del eng
+    torch.cuda.empty_cache()
+    return launches, n_ops
+
+
+def phase_reclaim(torch, m, ops, card: str) -> dict:
+    """The object plane's reclaim on the card: the launcher's recipe at
+    RECLAIM_OBJECTS objects (the same 128 B rows and 25% local), mcd_cl at
+    batch 1024 until at least RECLAIM_MIN objects were evicted, once with
+    the full LRU scan and once with a window of RECLAIM_BUDGET.  Each tick
+    that can run short of frames starts from a clone; from the first tick
+    that evicts, the clone runs the reference executor beside the batch
+    executor: every row and every field bit for bit, every tick.  Returns
+    the launch counts."""
+    dev = torch.device("cuda")
+    N = RECLAIM_OBJECTS
+    data_t = torch.from_numpy(m.serve.kv_data(N, SEED)).to(dev)
+    wl = list(m.kvworkload.zipf_churn(N, BATCH, RECLAIM_MAX_TICKS, seed=SEED))
+    max_alloc = BATCH // 8 + 1           # fresh log pages a batch can take
+    launches = None
+    for budget in (0, RECLAIM_BUDGET):
+        pcfg = m.serve.kv_plane_config(N, 0.25, lru_scan_budget=budget)
+        sb = m.state.create(pcfg, data_t, device=dev)
+        rb, sr, rr = m.baselines.ObjectReclaim(), None, None
+        mism = torch.zeros((), dtype=torch.int64, device=dev)
+        ops.reset_launch_counts()
+        t0 = time.time()
+        for t, ids in enumerate(wl):
+            ids_t = torch.from_numpy(ids).to(dev)
+            if sr is None:
+                # this tick can reclaim only if its fresh pages can leave
+                # fewer than 2 frames free
+                free = int((sb.vpage_of[:pcfg.num_frames] < 0).sum())
+                prev = sb.clone() if free - max_alloc < 2 else None
+                outs0 = int(sb.stats.obj_outs)
+            _, rows = m.baselines.object_access(pcfg, sb, ids_t, reclaim=rb)
+            mism += (rows != data_t[ids_t]).any(dim=1).sum()
+            if sr is None:
+                if prev is None or int(sb.stats.obj_outs) == outs0:
+                    continue
+                sr, rr, t_clone = prev, m.baselines.ObjectReclaim(), t
+            _, rrows = m.baselines.object_access(pcfg, sr, ids_t,
+                                                 mode="reference", reclaim=rr)
+            check(torch.equal(rows, rrows),
+                  f"reclaim (budget {budget}): reference rows differ at "
+                  f"tick {t}")
+            check(_states_equal(torch, m.convert, sb, sr),
+                  f"reclaim (budget {budget}): batch and reference states "
+                  f"differ at tick {t}")
+            if int(sb.stats.obj_outs) >= RECLAIM_MIN:
+                break
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = ops.launch_counts()
+        st = {k: int(v) for k, v in sb.stats._asdict().items()}
+        check(int(mism) == 0, f"reclaim (budget {budget}): {int(mism)} "
+                              f"served rows differ from the data")
+        check(st["obj_outs"] >= RECLAIM_MIN,
+              f"reclaim (budget {budget}): {st['obj_outs']} evictions in "
+              f"{len(wl)} ticks")
+        check(all(m.plane.check_invariants(pcfg, sb).values()),
+              f"reclaim (budget {budget}): invariants")
+        # the same ticks through the plain versions on the host's CPU: the
+        # card's state must be the CPU's, bit for bit
+        t1 = time.time()
+        sc = m.state.create(pcfg, data_t.cpu(), device="cpu")
+        rc = m.baselines.ObjectReclaim()
+        for ids in wl[:t + 1]:
+            m.baselines.object_access(pcfg, sc, torch.from_numpy(ids),
+                                      reclaim=rc)
+        check(_states_equal(torch, m.convert, sb, sc),
+              f"reclaim (budget {budget}): the card's state differs from "
+              f"the CPU's after {t + 1} ticks")
+        cpu_s = time.time() - t1
+        check(launches["gather_rows"] > 0, "reclaim: gather_rows never "
+                                           "launched")
+        per_round = rb.seconds / max(rb.rounds, 1)
+        log(f"[reclaim] lru_scan_budget={budget}: {t + 1} ticks of mcd_cl "
+            f"at {N} objects ({pcfg.num_frames} frames) in {wall:.2f}s; "
+            f"{st['obj_outs']} objects evicted in {rb.rounds} rounds of "
+            f"{pcfg.object_evict_batch}, {rb.reads} host reads; "
+            f"{per_round * 1e3:.3f} ms per reclaim round (host clock, reads "
+            f"included), lru_scans {st['lru_scans']} [{card}]")
+        log(f"[reclaim] lru_scan_budget={budget}: batch == reference "
+            f"executor, rows and every field, over ticks {t_clone}-{t} on a "
+            f"clone; every served row equal to the data; the final state "
+            f"equal to a CPU run of the same {t + 1} ticks ({cpu_s:.1f}s)")
+        del sb, sr, prev, sc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_robust(torch, m, ops, data_t, card: str) -> dict:
+    """The robust hybrid engine at full size, as [serve] runs it
+    (evacuation, epoch_every=16), dispatch="sync", through fig_faults'
+    scenarios (benchmarks/fig_faults.py): ROBUST_TICKS ticks of mcd_cl
+    offering 7/8 of BATCH new requests (the tail slots carry retries),
+    faults over the middle third.  A fault-free run, a 20% transient
+    failure window with max_retries=4 (run twice: the counters must
+    replay), and a total outage with max_retries=1 and the breaker armed.
+    Every served slot's row (retries too) is checked on the card, every
+    unserved one is zero, and every offered request leaves exactly once.
+    Returns the launch counts of the 20% run."""
+    import numpy as np
+    dev = torch.device("cuda")
+    F = m.faults
+    pcfg = m.serve.kv_plane_config(OBJECTS, 0.25, evac_garbage_threshold=-1.0)
+    steps, req = ROBUST_TICKS, BATCH - BATCH // 8   # fig_faults: 56 of 64
+    b1, b2 = steps // 3, 2 * steps // 3
+    window = (b1 + 2, b2 + 2)        # engine tick i plans at device tick i+1
+    wl = list(m.kvworkload.zipf_churn(OBJECTS, req, steps, seed=3))
+    offered = steps * req
+
+    def drive(name, sched, **kw):
+        eng = m.engine.Engine(m.engine.EngineConfig(
+            plane="hybrid", batch=BATCH, dispatch="sync", evac_every=64,
+            epoch_every=16, faults=sched, watchdog_s=300.0, **kw),
+            pcfg, data_t, device=dev)
+        bad = torch.zeros((), dtype=torch.int64, device=dev)
+        retire = eng._retire_one
+
+        def checked_retire():
+            # the batch about to retire: its served slots hold the true
+            # rows, its unserved slots zero rows
+            e = eng._inflight[0]
+            retire()
+            sv = e.served.numpy() & (e.ids >= 0)
+            ok = torch.from_numpy(np.nonzero(sv)[0]).to(dev)
+            no = torch.from_numpy(np.nonzero(~sv)[0]).to(dev)
+            ids = torch.from_numpy(e.ids).to(dev)
+            bad.add_((e.rows[ok] != data_t[ids[ok]]).any(dim=1).sum()
+                     + e.rows[no].any(dim=1).sum())
+        eng._retire_one = checked_retire
+        tripped = False
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for ids in wl:
+            eng.submit(ids)
+            eng.drain()
+            tripped |= eng.breaker_open
+        eng.flush_retries()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = ops.launch_counts()
+        c = dict(eng.counters)
+        stats = {k: int(v) for k, v in eng.state.stats._asdict().items()}
+        out = dict(counters=c, stats=stats, tripped=tripped,
+                   open_at_end=eng.breaker_open, launches=launches,
+                   p50=eng.latency.percentile(50),
+                   p99=eng.latency.percentile(99), wall=wall)
+        check(int(bad) == 0, f"robust {name}: {int(bad)} served rows wrong "
+                             f"or unserved rows not zero")
+        check(c["served"] + c["shed_requests"] == offered,
+              f"robust {name}: served {c['served']} + shed "
+              f"{c['shed_requests']} != offered {offered}")
+        check(not eng._retryq, f"robust {name}: retries left queued")
+        log(f"[robust] {name}: {steps} ticks in {wall:.3f}s, goodput "
+            f"{c['served'] / wall:.0f} requests/s, batch latency p50 "
+            f"{out['p50']:.0f} us p99 {out['p99']:.0f} us; counters {c}; "
+            f"fetch_failures {stats['fetch_failures']} [{card}]")
+        del eng
+        torch.cuda.empty_cache()
+        return out
+
+    base = drive("fault-free", F.NULL, max_retries=4)
+    p20s = F.Schedule(seed=11, fail_prob=0.2, fail_window=window)
+    p20 = drive("p20_retry", p20s, max_retries=4)
+    check(p20["counters"]["fetch_retries"] > 0
+          and p20["stats"]["fetch_failures"] > 0,
+          "robust p20_retry: no fetch failed or none was retried")
+    replay = drive("p20_retry replay", p20s, max_retries=4)
+    check(replay["counters"] == p20["counters"]
+          and replay["stats"] == p20["stats"],
+          "robust p20_retry: a same-seed replay gave other counters")
+    outage = drive("outage_breaker", F.Schedule(seed=11,
+                                                outages=(window + (-1,),)),
+                   max_retries=1, breaker_threshold=0.5,
+                   breaker_probe_every=4)
+    oc = outage["counters"]
+    check(outage["tripped"] and oc["breaker_trips"] >= 1,
+          "robust outage_breaker: the breaker never opened")
+    check(not outage["open_at_end"], "robust outage_breaker: the breaker "
+                                     "did not close after the outage")
+    check(oc["degraded_ticks"] > 0, "robust outage_breaker: no degraded tick")
+    for k in ("gather_rows", "compact_pages", "cat_decay"):
+        check(p20["launches"][k] > 0 and outage["launches"][k] > 0,
+              f"robust: kernel {k} was never launched")
+    log(f"[robust] p99 with faults {p20['p99']:.0f} us (p20_retry), "
+        f"{outage['p99']:.0f} us (outage_breaker), fault-free "
+        f"{base['p99']:.0f} us; same-seed replay: identical counters; "
+        f"kernel launches (p20_retry) {p20['launches']} [{card}]")
+    return p20["launches"]
 
 
 # --------------------------------------------------------------------------
@@ -1127,7 +1459,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch import convert
-    from repro_torch.core import batch, kvplane, plane, state
+    from repro_torch.core import baselines, batch, faults, kvplane, plane, state
     from repro_torch.data import kvworkload
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.launch import serve
@@ -1135,7 +1467,8 @@ def main() -> int:
 
     class M:  # the port's modules, for the phases
         pass
-    for mod in (convert, batch, plane, state, kvworkload, serve, engine):
+    for mod in (convert, baselines, batch, faults, plane, state, kvworkload,
+                serve, engine):
         setattr(M, mod.__name__.rsplit(".", 1)[-1], mod)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1206,8 +1539,11 @@ def main() -> int:
     log(f"[serve] 0 of {SERVE_TICKS * BATCH} served rows differ from the data")
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    by_path = {"serve": launches}
+    ops_per_tick = {"hybrid": profile_ticks(torch, eng, ids_all, 0, 16, card,
+                                            "serve")}
     if "--profile" in sys.argv:
-        phase_profile(torch, plane, eng, ids_all, 0, 16, card)
+        phase_profile(torch, plane, eng, card)
 
     # ---- the plane's path makes no host sync -----------------------------
     s = eng.state
@@ -1266,8 +1602,23 @@ def main() -> int:
     check(all(inv.values()), f"invariants: {inv}")
     log(f"[invariants] all hold on the final full-size state: {sorted(inv)}")
 
+    # ---- the baseline planes, the reclaim loop, the robust engine ----------
+    del eng, s, data
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for pl in ("paging", "object"):
+        by_path[pl], ops_per_tick[pl] = phase_baseline(torch, M, ops, pl,
+                                                       data_t, ids_all, card)
+    by_path["reclaim"] = phase_reclaim(torch, M, ops, card)
+    by_path["robust"] = phase_robust(torch, M, ops, data_t, card)
+    per_tick = {pl: by_path[pl if pl != "hybrid" else "serve"]["gather_rows"]
+                / SERVE_TICKS for pl in ("hybrid", "paging", "object")}
+    log(f"[planes] device ops per tick {ops_per_tick}; gather_rows launches "
+        f"per tick {per_tick} ({SERVE_TICKS} ticks of mcd_cl at {OBJECTS} "
+        f"objects, batch {BATCH}) [{card}]")
+
     # ---- the KV serve plane at llama3-8b's widths --------------------------
-    del eng, s, data, data_t, ids_all, wl
+    del data_t, ids_all, wl
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     kernels += phase_kv_kernels(torch, ops, ref, card, rate)
@@ -1286,6 +1637,10 @@ def main() -> int:
             k["launches_per_step"] = kv_launches[k["name"]] / KV_STEPS
         else:
             k["launches_per_step"] = k["launches"] / SERVE_TICKS
+            k["launches_by_path"] = {p: c[k["name"]]
+                                     for p, c in by_path.items()}
+    next(k for k in kernels if k["name"] == "gather_rows")[
+        "launches_per_tick_by_plane"] = per_tick
     pa = next(k for k in kernels if k["name"] == "paged_attention")
     pa["dense_launches_per_step"] = (dense_launches["paged_attention"]
                                      / DENSE_STEPS)

@@ -6,7 +6,8 @@ from .plane import (access, update, evacuate, plan_evacuate,
                     execute_evacuate, advance_epoch, writeback_all,
                     evict_all, peek, occupancy, paging_fraction,
                     check_invariants)
-from . import batch, faults, kvplane
+from .baselines import paging_access, object_access, object_reclaim
+from . import batch, baselines, faults, kvplane, offload, sync
 
 __all__ = [
     "FREE", "LOCAL", "REMOTE", "PSF_PAGING", "PSF_RUNTIME", "PlaneConfig",
@@ -14,5 +15,6 @@ __all__ = [
     "access", "update", "evacuate", "plan_evacuate", "execute_evacuate",
     "advance_epoch", "writeback_all", "evict_all",
     "peek", "occupancy", "paging_fraction", "check_invariants",
-    "batch", "faults", "kvplane",
+    "paging_access", "object_access", "object_reclaim",
+    "batch", "baselines", "faults", "kvplane", "offload", "sync",
 ]

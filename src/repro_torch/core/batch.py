@@ -565,16 +565,17 @@ def _resolve(cfg: PlaneConfig, mode) -> bool:
 
 
 def _begin(cfg: PlaneConfig, s: st.PlaneState, obj_ids: torch.Tensor,
-           plan: AccessPlan) -> torch.Tensor:
-    """The common head of execute_access/execute_update: step, hit/miss
-    stats, target recency (soft pin) and prefetch coverage.  Returns the
-    profiled ids (unserved requests profile as padded)."""
+           plan: AccessPlan, prefetch_hits: bool = True) -> torch.Tensor:
+    """The common head of every execute: step, hit/miss stats, target
+    recency (soft pin) and, except on the object plane, prefetch coverage.
+    Returns the profiled ids (unserved requests profile as padded)."""
     nv = _count(obj_ids >= 0)
     s.step = s.step + 1
     st.bump(s.stats, hits=nv - plan.n_miss, misses=plan.n_miss,
             fetch_failures=plan.n_failed, egress_failures=plan.n_egress)
     s.clock[torch.where(plan.served, plan.vpage, cfg.num_vpages)] = s.step
-    _account_prefetch_hits(cfg, s, plan)
+    if prefetch_hits:
+        _account_prefetch_hits(cfg, s, plan)
     return torch.where(plan.served, obj_ids, -1)
 
 
@@ -690,3 +691,60 @@ def plan_append_stream(cfg: PlaneConfig, s: st.PlaneState, which: str,
                                 cur0))
     used_cur = torch.where(use0 > 0, cur0, -1)
     return s, v_new, slot_new, in_cur, used_cur, vfresh, retired_page
+
+
+# --------------------------------------------------------------------------
+# baseline planes on the same engine
+# --------------------------------------------------------------------------
+
+def execute_paging_access(cfg: PlaneConfig, s: st.PlaneState,
+                          obj_ids: torch.Tensor, plan: AccessPlan, *,
+                          mode: str | None = None):
+    """Execute a Fastswap-analogue plan (built with ``split_by_psf=False``:
+    every miss takes the paging path; no CAT, no object moves).  Returns
+    ``(state, rows[R, D])``."""
+    scalar = _resolve(cfg, mode)
+    pids = _begin(cfg, s, obj_ids, plan)     # page-level recency only
+    _exec_paging(cfg, s, plan, scalar=scalar)
+    return s, _gather_final(cfg, s, pids, scalar=scalar)
+
+
+def paging_access(cfg: PlaneConfig, s: st.PlaneState, obj_ids: torch.Tensor,
+                  *, mode: str | None = None, shard=None,
+                  degraded: bool = False):
+    """Fastswap-analogue plane on the batch engine."""
+    plan = plan_access(cfg, s, obj_ids, split_by_psf=False, shard=shard,
+                       degraded=degraded)
+    return execute_paging_access(cfg, s, obj_ids, plan, mode=mode)
+
+
+def execute_object_access(cfg: PlaneConfig, s: st.PlaneState,
+                          obj_ids: torch.Tensor, plan: AccessPlan,
+                          reclaim_free_target: int = 2, *,
+                          mode: str | None = None, reclaim=None):
+    """Execute an AIFM-analogue plan (built with ``all_runtime=True``:
+    every miss object-fetches through the runtime plan); afterwards
+    ``reclaim`` (the object-level LRU egress loop,
+    ``baselines.object_reclaim`` or a ``baselines.ObjectReclaim``) runs if
+    frames are tight.  It is told the most frames this call's fresh log
+    pages can have taken (``max_alloc``)."""
+    scalar = _resolve(cfg, mode)
+    pids = _begin(cfg, s, obj_ids, plan, prefetch_hits=False)
+    _exec_runtime(cfg, s, plan.obj_plan, plan.n_objs, scalar=scalar)
+    # object-level hotness tracking (the expensive always-on metadata)
+    _profile(cfg, s, pids, with_cat=False, with_obj_last=True, scalar=scalar)
+    rows = _gather_final(cfg, s, pids, scalar=scalar)
+    if reclaim is not None:
+        R, P = obj_ids.shape[0], cfg.page_objs
+        reclaim(cfg, s, reclaim_free_target, max_alloc=(R + P - 1) // P + 1)
+    return s, rows
+
+
+def object_access(cfg: PlaneConfig, s: st.PlaneState, obj_ids: torch.Tensor,
+                  reclaim_free_target: int = 2, *, mode: str | None = None,
+                  reclaim=None, shard=None, degraded: bool = False):
+    """AIFM-analogue plane on the batch engine."""
+    plan = plan_access(cfg, s, obj_ids, all_runtime=True, shard=shard,
+                       degraded=degraded)
+    return execute_object_access(cfg, s, obj_ids, plan, reclaim_free_target,
+                                 mode=mode, reclaim=reclaim)

@@ -10,7 +10,6 @@ from repro.serving.engine import Engine as JEngine
 from repro.serving.engine import EngineConfig as JEngineConfig
 from repro_torch import convert
 from repro_torch.core import plane as tplane
-from repro_torch.core.faults import Schedule
 from repro_torch.core.layout import PlaneConfig
 from repro_torch.data import kvworkload
 from repro_torch.launch import serve
@@ -106,11 +105,7 @@ def test_short_batches_pad_and_run_reports():
     assert rep["latency"]["n"] == 163
 
 
-@pytest.mark.parametrize("bad", [dict(plane="paging"), dict(plane="object"),
-                                 dict(shards=2), dict(faults=Schedule()),
-                                 dict(deadline_us=100.0),
-                                 dict(max_retries=2),
-                                 dict(breaker_threshold=0.5)])
+@pytest.mark.parametrize("bad", [dict(shards=2)])
 def test_unported_engine_paths_raise(bad):
     with pytest.raises(NotImplementedError):
         Engine(EngineConfig(batch=16, **bad), PlaneConfig(**PLANE), DATA,
