@@ -59,7 +59,22 @@ Phases (any failure exits non-zero, with no result line):
 12. kvdense   llama3-8b decode_32k, one layer (B=128, 65,536 frames): 8
               append_dense + attend_dense steps against an f32
               recomputation on 4 sequences
-Every paged_attention launch of 11 and 12 is on the tensor cores.
+13. lm        llama3-8b at full width and depth (32 layers, bf16, weights
+              from a seeded generator) through models.api.decode_step:
+              8 sequences, 2,048 seeded tokens of context in the dense KV
+              plane, 32 timed greedy steps (paged_attention 32 launches a
+              step, lengths 2,080 after), 8 steps each also through the
+              plain path on a clone (logits within 5e-2 of the largest),
+              a 4-step profile, 8 steps with no host sync; paged_attention
+              at the step's shape against its plain version and SDPA
+14. lmexpert  kimi-k2 at full width, one layer deep, through the expert
+              plane (384 experts, 32 hot slots, fetch budget 8): as 13,
+              plus gather_rows 3 launches a step, every resident slot equal
+              to its expert's slab rows, batch == reference executor on a
+              clone, paged_attention at head_dim 112, gather_rows at the
+              expert fetch's 29.36 MB rows against index_select, the
+              whole fetch's device time
+Every paged_attention launch of 11 to 14 is on the tensor cores.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA GPU and the repository's
@@ -109,6 +124,20 @@ RECLAIM_MAX_TICKS = 240
 ROBUST_TICKS = 120
 # cat_update at the hybrid plane's CAT: 3,145,728 pages of 8 cards
 CAT_PAGES, CAT_CARDS, CAT_TOUCHES = 3_145_728, 8, 1024
+# the model decode path ([lm], [lmexpert]): 8 sequences in a 4,096-token
+# dense KV plane with 2,048 seeded tokens of context, 32 timed greedy
+# steps, 8 more each checked against the plain path, a 4-step profile and
+# 8 steps under set_sync_debug_mode("error")
+LM_BATCH, LM_SEQ, LM_PREFIX = 8, 4096, 2048
+LM_STEPS, LM_CHECKED, LM_PROFILE, LM_NOSYNC = 32, 8, 4, 8
+# logits of the kernel path against the plain path, relative to the largest
+# |logit|: the attention kernel and its plain version round apart by a few
+# bf16 ulps in each layer (2e-2 of the largest output is that kernel's own
+# limit), and 32 layers carry it to the logits
+LM_LOGIT_TOL = 5e-2
+# a routed token whose k-th and (k+1)-th router probabilities lie closer
+# than this (relative) may change experts between the two paths
+ROUTE_TIE = 1e-3
 
 
 def log(msg: str) -> None:
@@ -1449,6 +1478,448 @@ def phase_kv_dense(torch, ops, ref, tkv, card: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# the model decode path (models.api) at full width
+# --------------------------------------------------------------------------
+
+def lm_configs(configs):
+    """[lm]: llama3-8b as assigned (32 layers); [lmexpert]: kimi-k2 as
+    assigned but one layer deep (61 layers of 33.8 GB expert slabs cannot
+    fit one card)."""
+    return (configs.get_config("llama3-8b"),
+            configs.get_config("kimi-k2-1t-a32b").scaled(n_layers=1))
+
+
+def fill_kv_prefix(torch, state, g, prefix: int) -> None:
+    """Every layer's frames from ``g`` (seeded K/V, as [kvdense] fills its
+    plane) and ``prefix`` tokens already in context for each sequence."""
+    for kv in state.kv:
+        for h in range(kv.k_frames.shape[0]):
+            kv.k_frames[h].normal_(generator=g)
+            kv.v_frames[h].normal_(generator=g)
+    state.lengths.fill_(prefix)
+
+
+def nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(nbytes(v) for v in tree)
+    return tree.nbytes
+
+
+def kv_read_bytes(cfg, batch: int, tokens: int) -> int:
+    """K and V of ``tokens`` rows per sequence in every layer, read once."""
+    return 2 * cfg.n_layers * batch * tokens * cfg.n_kv_heads * cfg.hd * 2
+
+
+def greedy_run(torch, step, params, state, tok, steps: int):
+    """``steps`` greedy decode steps from ``tok``, a sync after each:
+    (state, next token, ms per step)."""
+    ms = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, logits = step(params, state, tok)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        tok = logits.argmax(dim=-1).to(torch.int32)
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    return state, tok, ms
+
+
+class routing_log:
+    """Within the block, every expert plane call records each token's
+    top-k expert set (sorted) and the relative gap between its k-th and
+    (k+1)-th router probability (how far the top-k decision is from a
+    tie)."""
+
+    def __init__(self, torch, ep):
+        self.torch, self.ep, self.calls = torch, ep, []
+
+    def __enter__(self):
+        real = self.real = self.ep.moe_decode
+        torch = self.torch
+
+        def spy(cfg, s, router, x, *a, **kw):
+            p = torch.softmax(x.float() @ router.float(), dim=-1)
+            v, i = p.sort(dim=-1, descending=True)
+            k = cfg.topk
+            self.calls.append((i[:, :k].sort(dim=-1).values,
+                               (v[:, k - 1] - v[:, k]) / v[:, k - 1]))
+            return real(cfg, s, router, x, *a, **kw)
+        self.ep.moe_decode = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.ep.moe_decode = self.real
+
+
+def checked_steps(torch, ep, step, step_ref, params, state, tok, n: int,
+                  tag: str):
+    """``n`` greedy steps of the kernel path, each also run by the plain
+    path (kernel_impl="ref") on a clone of the state it started from, with
+    the same token: logits within LM_LOGIT_TOL of the largest |logit|.  A
+    step where a token's routed experts differ between the two paths is
+    only allowed where that token's top-k decision was within ROUTE_TIE
+    (relative) of a tie, and its logits are then not compared (at most
+    half the steps).  Returns (state, next token, what was found)."""
+    worst, agree, total, ties = 0.0, 0, 0, 0
+    for i in range(n):
+        other = state.clone()
+        with routing_log(torch, ep) as rk:
+            state, lk = step(params, state, tok)
+        with routing_log(torch, ep) as rr:
+            other, lr = step_ref(params, other, tok)
+        del other
+        tie = False
+        for (sk, mk), (sr, mr) in zip(rk.calls, rr.calls):
+            diff = (sk != sr).any(dim=-1)
+            if bool(diff.any()):
+                m = float(torch.minimum(mk, mr)[diff].max())
+                check(m < ROUTE_TIE, f"{tag} step {i}: the plain path routed "
+                                     f"a token to other experts with a "
+                                     f"top-k margin of {m:.3g}")
+                tie = True
+        if tie:
+            ties += 1
+        else:
+            rel = float((lr - lk).abs().max() / lk.abs().max())
+            check(rel <= LM_LOGIT_TOL, f"{tag} step {i}: logits of the kernel "
+                                       f"path off the plain path's by "
+                                       f"{rel:.3g} of the largest "
+                                       f"(tolerance {LM_LOGIT_TOL})")
+            worst = max(worst, rel)
+        agree += int((lk.argmax(-1) == lr.argmax(-1)).sum())
+        total += lk.shape[0]
+        tok = lk.argmax(dim=-1).to(torch.int32)
+    check(2 * ties <= n, f"{tag}: routing ties in {ties} of {n} steps")
+    torch.cuda.empty_cache()
+    log(f"[{tag}] {n} steps, each also through the plain path "
+        f"(kernel_impl='ref') from a clone of its state: logits within "
+        f"{worst:.3g} of the largest (tolerance {LM_LOGIT_TOL}) on "
+        f"{n - ties} steps, {ties} steps with a routing tie (top-k margin "
+        f"under {ROUTE_TIE}); argmax equal for {agree} of {total}")
+    return state, tok, {"logit_rel_err": worst, "argmax_agree": [agree, total],
+                        "tie_steps": ties}
+
+
+def attention_record(torch, ops, ref, kv, q, lengths, kvc, rate, card,
+                     tag) -> dict:
+    """paged_attention on one layer's plane at the decode step's shape,
+    against its plain version, timed beside scaled_dot_product_attention
+    on the same K/V gathered contiguous."""
+    B, H, Dh = q.shape
+    KVH, P, NP = kvc.kv_heads, kvc.page_tokens, kvc.num_pages
+    table = kv.page_table[:-1].view(B, NP)
+    lens = ops.lengths_to_page_lens(lengths, NP, P)
+    from repro_torch.kernels import paged_attention as tpattn
+    n_mma = tpattn.launches_mma
+    o_k, u_k = ops.paged_attention(q, kv.k_frames, kv.v_frames, table, lens)
+    check(tpattn.launches_mma == n_mma + 1,
+          f"{tag}: paged_attention not on the tensor cores")
+    o_p, u_p = ref.paged_attention_ref(q, kv.k_frames, kv.v_frames, table,
+                                       lens)
+    border = used_borderline(torch, q, kv.k_frames, kv.v_frames, table, lens)
+    err, n_diff, n_border = check_attention(torch, f"{tag} paged_attention",
+                                            o_k, u_k, o_p, u_p, border)
+    ms = device_ms(torch, lambda: ops.paged_attention(
+        q, kv.k_frames, kv.v_frames, table, lens), n=20, rounds=3)
+    plain_ms = device_ms(torch, lambda: ref.paged_attention_ref(
+        q, kv.k_frames, kv.v_frames, table, lens), n=5, rounds=3)
+    L = int(lengths.max())
+    F = kv.k_frames.shape[1] - 1
+    kg = kv.k_frames[:, :F].reshape(KVH, B, NP * P, Dh)[:, :, :L].transpose(
+        0, 1).contiguous()
+    vg = kv.v_frames[:, :F].reshape(KVH, B, NP * P, Dh)[:, :, :L].transpose(
+        0, 1).contiguous()
+    lib_ms = device_ms(torch, sdpa_fn(torch, q, kg, vg), n=20, rounds=3)
+    del kg, vg
+    G = H // KVH
+    nb = 2 * B * KVH * L * Dh * 2 + 2 * B * H * Dh * 2 + B * NP * P \
+        + 8 * B * NP
+    bnd = bound(nb, 4 * G * Dh * L * KVH * B, rate, PEAK_BF16)
+    log(f"[{tag}] paged_attention at the step's shape (B={B}, G={G}, "
+        f"Dh={Dh}, {L} tokens, bf16): max abs err {err:.3g} (tolerance 2e-2 "
+        f"x the largest output), used differs on {n_diff} rows, {n_border} "
+        f"borderline; {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, "
+        f"library scaled_dot_product_attention on K/V gathered contiguous "
+        f"{lib_ms * 1e3:.2f} us, bound {bnd[0] * 1e3:.2f} us by {bnd[1]}) "
+        f"[{card}]")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "max_abs_err": err}
+
+
+def profile_steps(torch, step, params, state, tok, n, card, tag):
+    """``n`` decode steps under torch.profiler: wall and device busy time
+    per step, device operations per step, the heaviest kernels."""
+    box = [state]
+
+    def one():
+        box[0], _ = step(params, box[0], tok)
+    wall, busy, ops_n, rows = profiled(torch, one, n)
+    log(f"[{tag}] profile of {n} steps: wall {wall * 1e3:.3f} ms/step, "
+        f"device busy {busy * 1e3:.3f} ms/step ({100 * busy / wall:.1f}% of "
+        f"wall), {ops_n:.0f} device ops/step [{card}]")
+    for dev_us, count, key in sorted(rows, reverse=True)[:8]:
+        log(f"[{tag}]   {dev_us / 1e3 / n:8.3f} ms/step {count / n:6.1f} "
+            f"per step  {key[:90]}")
+    return box[0], {"wall_ms": wall * 1e3, "busy_ms": busy * 1e3,
+                    "ops_per_step": ops_n}
+
+
+def nosync_steps(torch, step, params, state, tok, n, tag):
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(n):
+            state, logits = step(params, state, tok)
+            tok = logits.argmax(dim=-1).to(torch.int32)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(bool(torch.isfinite(logits).all()), f"{tag}: non-finite logits")
+    log(f"[{tag}] {n} more steps under set_sync_debug_mode('error'): no "
+        f"host sync")
+    return state
+
+
+def phase_lm(torch, ops, ref, configs, api, ep, card: str,
+             rate: float) -> dict:
+    """llama3-8b at full width and depth through api.decode_step: 8
+    sequences with 2,048 seeded tokens of context each, 32 greedy steps."""
+    dev = torch.device("cuda")
+    cfg = lm_configs(configs)[0]
+    shape = configs.ShapeConfig("serve", LM_SEQ, LM_BATCH, "decode")
+    t0 = time.time()
+    params = api.init_params(cfg, seed=SEED + 6, device=dev)
+    state = api.init_decode_state(cfg, shape, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 7)
+    fill_kv_prefix(torch, state, g, LM_PREFIX)
+    torch.cuda.synchronize()
+    kvc, mode = api.kv_plan(cfg, shape)
+    log(f"[lm] llama3-8b {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, bf16: weights {nbytes(params) / 1e9:.2f} GB, {mode} "
+        f"KV planes {nbytes([[k.k_frames, k.v_frames] for k in state.kv]) / 1e9:.2f}"
+        f" GB ({cfg.n_layers} x {tuple(state.kv[0].k_frames.shape)} x2), "
+        f"{LM_PREFIX} tokens of context x {LM_BATCH} sequences; set up in "
+        f"{time.time() - t0:.1f}s")
+    step = api.decode_step(cfg, shape)
+    tok = torch.randint(0, cfg.vocab, (LM_BATCH,), generator=g, device=dev,
+                        dtype=torch.int32)
+    ops.reset_launch_counts()
+    state, tok, ms = greedy_run(torch, step, params, state, tok, LM_STEPS)
+    launches = ops.launch_counts()
+    want = cfg.n_layers * LM_STEPS
+    check(launches["paged_attention"] == want
+          and launches["paged_attention_mma"] == want,
+          f"[lm] paged_attention launched {launches['paged_attention']} "
+          f"times ({launches['paged_attention_mma']} on the tensor cores) "
+          f"in {LM_STEPS} steps of {cfg.n_layers} layers")
+    check(bool((state.lengths == LM_PREFIX + LM_STEPS).all()),
+          f"[lm] lengths {state.lengths.tolist()} after {LM_STEPS} steps")
+    step_ms = statistics.median(ms[1:])
+    w_bytes = nbytes(params) - params["embed"].nbytes \
+        + LM_BATCH * cfg.d_model * 2
+    kv_bytes = kv_read_bytes(cfg, LM_BATCH, LM_PREFIX + LM_STEPS // 2)
+    bnd = bound(w_bytes + kv_bytes, 2 * LM_BATCH * (w_bytes / 2), rate,
+                PEAK_BF16)
+    log(f"[lm] {LM_STEPS} greedy steps: {step_ms:.3f} ms per step (median, "
+        f"synced; first {ms[0]:.3f} ms); lengths {LM_PREFIX + LM_STEPS}; "
+        f"launches {launches} ({want // LM_STEPS} paged_attention per step); "
+        f"step bound {bnd[0]:.3f} ms by {bnd[1]} (weights read once, the "
+        f"embedding indexed, {w_bytes / 1e9:.2f} GB, plus K/V "
+        f"{kv_bytes / 1e9:.2f} GB) [{card}]")
+    state, tok, vs_plain = checked_steps(
+        torch, ep, step, api.decode_step(cfg, shape, kernel_impl="ref"),
+        params, state, tok, LM_CHECKED, "lm")
+    state, prof = profile_steps(torch, step, params, state, tok, LM_PROFILE,
+                                card, "lm")
+    state = nosync_steps(torch, step, params, state, tok, LM_NOSYNC, "lm")
+    q = torch.randn((LM_BATCH, cfg.n_heads, cfg.hd), generator=g,
+                    device=dev, dtype=cfg.dtype)
+    attn = attention_record(torch, ops, ref, state.kv[0], q, state.lengths,
+                            kvc, rate, card, "lm")
+    del params, state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "first_ms": ms[0],
+            "bound_ms": bnd[0], "vs_plain": vs_plain, "profile": prof,
+            "attention": attn}
+
+
+def resident_match(torch, epc, es, mp) -> int:
+    """Every resident slot's hot weights equal its expert's slab rows."""
+    S = epc.hot_slots
+    e = es.view("expert_of")
+    held = torch.nonzero(e >= 0).flatten()
+    ids = e[held].long()
+    for name, slab in (("hot_wi", mp["wi"]), ("hot_wg", mp["wg"]),
+                       ("hot_wo", mp["wo"])):
+        check(torch.equal(getattr(es, name)[:S][held], slab[ids]),
+              f"[lmexpert] {name}: a resident slot differs from its "
+              f"expert's slab rows")
+    check(torch.equal(es.view("slot_of")[ids], held.to(torch.int32)),
+          "[lmexpert] slot_of and expert_of disagree")
+    return int(held.numel())
+
+
+def phase_lm_expert(torch, ops, ref, configs, api, ep, convert, card: str,
+                    rate: float) -> dict:
+    """kimi-k2 at full width, one layer deep, through api.decode_step and
+    the expert plane (384 experts, 32 hot slots, fetch budget 8): 8
+    sequences with 2,048 seeded tokens of context, 32 greedy steps."""
+    dev = torch.device("cuda")
+    cfg = lm_configs(configs)[1]
+    shape = configs.ShapeConfig("serve", LM_SEQ, LM_BATCH, "decode")
+    t0 = time.time()
+    params = api.init_params(cfg, seed=SEED + 8, device=dev)
+    state = api.init_decode_state(cfg, shape, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 9)
+    fill_kv_prefix(torch, state, g, LM_PREFIX)
+    torch.cuda.synchronize()
+    epc = api._expert_cfg(cfg)
+    mp = params["blocks"][0]["moe"]
+    es = state.extra[0]
+    hot = es.hot_wi.nbytes + es.hot_wg.nbytes + es.hot_wo.nbytes
+    log(f"[lmexpert] kimi-k2 1 of {configs.get_config('kimi-k2-1t-a32b').n_layers}"
+        f" layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"heads (Dh {cfg.hd}), {cfg.moe_experts} experts top-{cfg.moe_topk}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, bf16: expert slabs "
+        f"{nbytes([mp['wi'], mp['wg'], mp['wo']]) / 1e9:.2f} GB, hot store "
+        f"{epc.hot_slots} slots + trash {hot / 1e9:.2f} GB, other weights "
+        f"{(nbytes(params) - nbytes([mp['wi'], mp['wg'], mp['wo']])) / 1e9:.2f}"
+        f" GB; set up in {time.time() - t0:.1f}s")
+    step = api.decode_step(cfg, shape)
+    tok = torch.randint(0, cfg.vocab, (LM_BATCH,), generator=g, device=dev,
+                        dtype=torch.int32)
+    ops.reset_launch_counts()
+    fetched0 = int((es.view("expert_of") >= 0).sum())
+    state, tok, ms = greedy_run(torch, step, params, state, tok, LM_STEPS)
+    launches = ops.launch_counts()
+    check(launches["gather_rows"] == 3 * LM_STEPS,
+          f"[lmexpert] gather_rows launched {launches['gather_rows']} times "
+          f"in {LM_STEPS} steps (3 per step wanted)")
+    check(launches["paged_attention"] == LM_STEPS
+          and launches["paged_attention_mma"] == LM_STEPS,
+          f"[lmexpert] paged_attention launches {launches}")
+    check(int(es.step) == LM_STEPS and fetched0 == 0,
+          "[lmexpert] the expert plane's step count is off")
+    access = es.access
+    needed_per_step = float(access.sum()) / LM_STEPS
+    held = resident_match(torch, epc, es, mp)
+    check(held == epc.hot_slots, f"[lmexpert] {held} of {epc.hot_slots} "
+                                 f"slots hold an expert")
+    step_ms = statistics.median(ms[1:])
+    log(f"[lmexpert] {LM_STEPS} greedy steps: {step_ms:.3f} ms per step "
+        f"(median, synced; first {ms[0]:.3f} ms); {needed_per_step:.1f} "
+        f"experts needed per step on average, {held} resident, all equal "
+        f"to their slab rows; launches {launches} [{card}]")
+    state, tok, vs_plain = checked_steps(
+        torch, ep, step, api.decode_step(cfg, shape, kernel_impl="ref"),
+        params, state, tok, LM_CHECKED, "lmexpert")
+
+    # the batch executor against the reference executor, 2 steps on a clone
+    step_r = api.decode_step(cfg, shape, fetch_mode="reference")
+    for _ in range(2):
+        other = state.clone()
+        state, lb = step(params, state, tok)
+        other, lr = step_r(params, other, tok)
+        a = convert.expert_state_to_numpy(state.extra[0])
+        b = convert.expert_state_to_numpy(other.extra[0])
+        for k in a:
+            check(bool((a[k] == b[k]).all()),
+                  f"[lmexpert] batch vs reference executor: {k} differs")
+        check(torch.equal(lb, lr), "[lmexpert] batch vs reference executor: "
+                                   "logits differ")
+        tok = lb.argmax(dim=-1).to(torch.int32)
+        del other
+    torch.cuda.empty_cache()
+    log("[lmexpert] batch == reference executor over 2 steps on a clone: "
+        "every expert plane field, the hot store and the logits bit for bit")
+
+    state, prof = profile_steps(torch, step, params, state, tok, LM_PROFILE,
+                                card, "lmexpert")
+    state = nosync_steps(torch, step, params, state, tok, LM_NOSYNC,
+                         "lmexpert")
+    resident_match(torch, epc, state.extra[0], mp)
+
+    # paged_attention at Dh 112 (G=8) on the layer's plane
+    q = torch.randn((LM_BATCH, cfg.n_heads, cfg.hd), generator=g,
+                    device=dev, dtype=cfg.dtype)
+    kvc, _ = api.kv_plan(cfg, shape)
+    attn = attention_record(torch, ops, ref, state.kv[0], q, state.lengths,
+                            kvc, rate, card, "lmexpert")
+
+    # gather_rows at the expert fetch's shape: 8 rows of d*f bf16
+    E, D = cfg.moe_experts, cfg.d_model * cfg.d_ff
+    pool = mp["wi"].view(E, D)
+    sets = [torch.randperm(E, generator=g, device=dev)[:epc.fetch_budget].to(
+        torch.int32) for _ in range(4)]
+    got = ops.gather_rows(pool, sets[0], masked=False)
+    plain = ref.gather_rows_ref(pool, sets[0])
+    check(torch.equal(got, plain), "[lmexpert] gather_rows disagrees with "
+                                   "its plain version at the expert shape")
+    del got, plain
+    pos = [0]
+
+    def pick():
+        pos[0] += 1
+        return sets[pos[0] % len(sets)]
+    g_ms = device_ms(torch, lambda: ops.gather_rows(pool, pick()), n=10,
+                     rounds=3)
+    gp_ms = device_ms(torch, lambda: ref.gather_rows_ref(pool, pick()), n=10,
+                      rounds=3)
+    gl_ms = device_ms(torch, lambda: pool.index_select(0, pick().long()),
+                      n=10, rounds=3)
+    R = epc.fetch_budget
+    gb = 2 * R * D * pool.element_size() + 4 * R
+    g_bnd = bound(gb, 0, rate, PEAK_BF16)
+    log(f"[kernel] gather_rows at the expert fetch (R={R} rows of "
+        f"{D * pool.element_size() / 1e6:.2f} MB, bf16): equal to plain; "
+        f"{g_ms * 1e3:.2f} us (plain {gp_ms * 1e3:.2f} us, library "
+        f"index_select {gl_ms * 1e3:.2f} us, bound {g_bnd[0] * 1e3:.2f} us "
+        f"by bytes, {100 * g_bnd[0] / g_ms:.0f}% of it) [{card}]")
+
+    # the whole fetch of one step (3 gathers and 3 hot-store scatters) on a
+    # clone of the plane, replaying one plan of 8 misses
+    ex = es.clone()
+    needed = torch.zeros((E,), dtype=torch.bool, device=dev)
+    needed[torch.randperm(E, generator=g, device=dev)[:60]] = True
+    plan = ep.plan_fetch(epc, ex, needed)
+    n_fetch = int((plan.expert >= 0).sum())
+    f_ms = device_ms(torch, lambda: ep._exec_fetch_batch(
+        epc, ex, plan, mp["wi"], mp["wg"], mp["wo"]), n=10, rounds=3)
+    fb = 3 * 2 * n_fetch * D * 2
+    f_bnd = bound(fb, 0, rate, PEAK_BF16)
+    del ex
+    log(f"[lmexpert] expert fetch of one step ({n_fetch} experts, 3 "
+        f"tensors: gather_rows then the hot-store scatter): {f_ms:.3f} ms "
+        f"device time; bound {f_bnd[0]:.3f} ms by bytes (each fetched row "
+        f"read once and written once into its slot) [{card}]")
+
+    w_bytes = (nbytes(params) - nbytes([mp["wi"], mp["wg"], mp["wo"]])
+               - params["embed"].nbytes + LM_BATCH * cfg.d_model * 2
+               + 3 * epc.hot_slots * D * 2)
+    kv_bytes = kv_read_bytes(cfg, LM_BATCH, LM_PREFIX + LM_STEPS // 2)
+    s_bnd = bound(w_bytes + kv_bytes + fb, 0, rate, PEAK_BF16)
+    log(f"[lmexpert] step bound {s_bnd[0]:.3f} ms by bytes (weights but "
+        f"the slabs, the embedding indexed, the whole hot store "
+        f"{w_bytes / 1e9:.2f} GB; K/V {kv_bytes / 1e9:.3f} GB; the fetch "
+        f"{fb / 1e9:.2f} GB) against {step_ms:.3f} ms [{card}]")
+    del params, state, pool, es, mp
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "first_ms": ms[0],
+            "bound_ms": s_bnd[0], "vs_plain": vs_plain, "profile": prof,
+            "attention": attn,
+            "experts_needed_per_step": needed_per_step,
+            "fetch_ms": f_ms, "fetch_bound_ms": f_bnd[0],
+            "gather": {"ms": g_ms, "plain_ms": gp_ms, "library_ms": gl_ms,
+                       "bound_ms": g_bnd[0], "max_abs_err": 0.0,
+                       "row_bytes": D * 2, "rows": R}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1458,11 +1929,13 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import numpy as np
 
-    from repro_torch import convert
-    from repro_torch.core import baselines, batch, faults, kvplane, plane, state
+    from repro_torch import configs, convert
+    from repro_torch.core import (baselines, batch, expertplane, faults,
+                                  kvplane, plane, state)
     from repro_torch.data import kvworkload
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.launch import serve
+    from repro_torch.models import api
     from repro_torch.serving import engine
 
     class M:  # the port's modules, for the phases
@@ -1630,6 +2103,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     dense_launches = phase_kv_dense(torch, ops, ref, kvplane, card)
     torch.cuda.empty_cache()
+
+    # ---- the model decode path at full width --------------------------------
+    lm = phase_lm(torch, ops, ref, configs, api, expertplane, card, rate)
+    lmx = phase_lm_expert(torch, ops, ref, configs, api, expertplane, convert,
+                          card, rate)
     for k in kernels:
         if k["name"] in ("page_scores", "paged_attention", "cat_update"):
             # cat_update is on no runtime path, in the JAX package either
@@ -1645,6 +2123,19 @@ def main() -> int:
     pa["dense_launches_per_step"] = (dense_launches["paged_attention"]
                                      / DENSE_STEPS)
     pa["launches_mma"] = kv_launches["paged_attention_mma"]
+    for k in kernels:
+        k.setdefault("launches_by_path", {}).update(
+            lm=lm["launches"][k["name"]], lmexpert=lmx["launches"][k["name"]])
+    gr = next(k for k in kernels if k["name"] == "gather_rows")
+    gr["expert_fetch"] = dict(lmx["gather"], launches_per_step=lmx[
+        "launches"]["gather_rows"] / LM_STEPS)
+    pa["lm"] = dict(lm["attention"], launches_per_step=lm["launches"][
+        "paged_attention"] / LM_STEPS)
+    pa["dh112"] = dict(lmx["attention"], launches_per_step=lmx["launches"][
+        "paged_attention"] / LM_STEPS)
+    log(f"[lm] summary: llama3-8b {lm['step_ms']:.3f} ms per step (bound "
+        f"{lm['bound_ms']:.3f} ms), kimi-k2 one layer {lmx['step_ms']:.3f} "
+        f"ms per step (bound {lmx['bound_ms']:.3f} ms) [{card}]")
 
     log(f"[done] {time.time() - t_start:.1f}s [{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)

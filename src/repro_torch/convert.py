@@ -8,16 +8,20 @@ appending the trash rows.  This is how a state carries across the two
 frameworks: the tests hand the JAX plane's state to the port this way.
 ``kv_state_to_numpy``/``kv_state_from_numpy`` do the same for the KV
 plane's ``KVPlaneState``, a list of shard states standing for JAX's
-stacked leading shard axis.
+stacked leading shard axis; ``expert_state_*`` for the expert plane, and
+``params_from_numpy``/``serve_state_*`` for the model's params and serve
+state, whose per-layer lists stand for JAX's stacked layer axis.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .core import expertplane as ep
 from .core import kvplane as kv
 from .core import state as st
 from .core.layout import PlaneConfig
+from .models import api
 
 
 def _as_dict(d) -> dict:
@@ -100,3 +104,102 @@ def kv_state_from_numpy(cfg: kv.KVPlaneConfig, d, device="cuda"):
         return [_kv_one(cfg, {k: np.asarray(v)[i] for k, v in d.items()},
                         dev) for i in range(np.shape(d["step"])[0])]
     return _kv_one(cfg, d, dev)
+
+
+# --------------------------------------------------------------------------
+# the model's params and serve state (models.api)
+# --------------------------------------------------------------------------
+
+def _tensor(a, dev, dtype=None) -> torch.Tensor:
+    """A numpy array (ml_dtypes bf16 from JAX too) as a tensor on ``dev``,
+    in ``dtype`` if given, else in the array's own dtype."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            dev, dtype or torch.bfloat16)
+    x = torch.from_numpy(np.array(a)).to(dev)
+    return x if dtype is None else x.to(dtype)
+
+
+def _tree(t, fn):
+    if isinstance(t, dict):
+        return {k: _tree(v, fn) for k, v in t.items()}
+    return fn(t)
+
+
+def params_from_numpy(cfg, jax_params, device="cuda") -> dict:
+    """The JAX package's params (nested dicts, ``blocks`` leaves stacked
+    ``[L, ...]``) in the port's layout: the same key names, ``blocks`` a
+    list of L per-layer dicts, each leaf in its JAX dtype."""
+    dev = st.resolve_device(device)
+    out = {k: _tree(v, lambda a: _tensor(a, dev))
+           for k, v in jax_params.items() if k != "blocks"}
+    blocks = _tree(jax_params["blocks"], np.asarray)
+    out["blocks"] = [_tree(blocks, lambda a: _tensor(a[i], dev))
+                     for i in range(cfg.n_layers)]
+    return out
+
+
+def _expert_np(s: ep.ExpertPlaneState) -> dict:
+    out = {}
+    for name in ep.ExpertPlaneState._fields:
+        x = s.view(name)
+        if x.dtype == torch.bfloat16:
+            x = x.to(torch.float32)
+        out[name] = x.cpu().numpy()
+    return out
+
+
+def expert_state_to_numpy(s) -> dict:
+    """An expert plane state (or a list of layer states, stacked on a
+    leading axis) as the JAX ``ExpertPlaneState``'s logical numpy arrays."""
+    if isinstance(s, (list, tuple)):
+        parts = [_expert_np(x) for x in s]
+        return {k: np.stack([p[k] for p in parts]) for k in parts[0]}
+    return _expert_np(s)
+
+
+def _expert_one(cfg: ep.ExpertPlaneConfig, d: dict, dev) -> ep.ExpertPlaneState:
+    s = ep.init(cfg, dev)
+    for name in ep.ExpertPlaneState._fields:
+        dst = s.view(name)
+        dst.copy_(_tensor(d[name], dev, dst.dtype).reshape(dst.shape))
+    return s
+
+
+def expert_state_from_numpy(cfg: ep.ExpertPlaneConfig, d, device="cuda"):
+    """A port expert state from the JAX ``ExpertPlaneState``'s fields; with
+    a leading layer axis (``step`` of shape ``[L]``), a list of L states."""
+    dev = st.resolve_device(device)
+    d = _as_dict(d)
+    if np.ndim(d["step"]) == 1:
+        return [_expert_one(cfg, {k: np.asarray(v)[i] for k, v in d.items()},
+                            dev) for i in range(np.shape(d["step"])[0])]
+    return _expert_one(cfg, d, dev)
+
+
+def serve_state_to_numpy(cfg, shape, s, shards: int = 1) -> dict:
+    """A port ``ServeState`` as the JAX one's arrays: ``lengths``, ``kv``
+    (fields stacked ``[L, ...]``, ``[L, D, ...]`` in sparse mode) and
+    ``extra`` (the expert planes stacked ``[L, ...]``, or ``()``)."""
+    kvc, _ = api.kv_plan(cfg, shape, shards)
+    layers = [kv_state_to_numpy(kvc, x) for x in s.kv]
+    return {"lengths": s.lengths.cpu().numpy(),
+            "kv": {k: np.stack([p[k] for p in layers]) for k in layers[0]},
+            "extra": expert_state_to_numpy(s.extra) if s.extra else ()}
+
+
+def serve_state_from_numpy(cfg, shape, d, shards: int = 1, device="cuda"):
+    """A port ``ServeState`` from the JAX one (a mapping or anything with
+    ``_asdict()``, e.g. a ``jax.device_get`` of it)."""
+    dev = st.resolve_device(device)
+    d = _as_dict(d)
+    kvc, _ = api.kv_plan(cfg, shape, shards)
+    kvd = _as_dict(d["kv"])
+    kv = [kv_state_from_numpy(kvc, {k: np.asarray(v)[i]
+                                    for k, v in kvd.items()}, dev)
+          for i in range(np.shape(kvd["step"])[0])]
+    extra = ()
+    if api._uses_expert_plane(cfg):
+        extra = expert_state_from_numpy(api._expert_cfg(cfg), d["extra"], dev)
+    return api.ServeState(_tensor(d["lengths"], dev, torch.int32), kv, extra)

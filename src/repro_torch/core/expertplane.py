@@ -1,0 +1,283 @@
+"""Tiered MoE expert store for decode (port of ``repro.core.expertplane``).
+
+Expert weights are far-memory-shaped state at decode time: a 384-expert
+layer activates at most ``batch * topk`` experts per step, routing is
+skewed, and the hot set churns.  Each expert is one page (its FFN needs all
+of its weights at once), so the plane runs in pure-paging mode: missing
+needed experts are fetched in bulk into a hot store of ``hot_slots``
+experts, victims are the coldest slots not needed this step, and the MoE
+math runs against the hot store through the expert->slot table.
+
+Where the port departs from the JAX form, and why:
+
+* **State in place.**  ``ensure_resident`` and ``moe_decode`` update their
+  ``ExpertPlaneState`` in place and return it, keeping JAX's returns.
+  ``ExpertPlaneState.clone`` copies a state for an oracle.  JAX's memoized
+  jit entries that donate the state need no counterpart.
+* **Trash rows.**  JAX drops a scatter at an out-of-bounds index (slot
+  ``S``, expert ``E``); here the hot store, ``expert_of`` and ``clock``
+  carry a trash slot ``S`` and ``slot_of`` a trash expert ``E`` that take
+  such writes.  ``ExpertPlaneState.view`` gives the logical tensors.
+* **Ties.**  ``lax.top_k`` takes the lowest index among equals: the fetch
+  list (a 0/1 mask, all ties), the victims (equal clocks) and the router's
+  top-k all sort stably (``batch.stable_order``), and the dispatch's
+  ``jnp.argsort`` is ``torch.argsort(stable=True)``.
+* **f32 expert products from bf16 weights** (``preferred_element_type``):
+  on the card ``torch.bmm(..., out_dtype=torch.float32)`` reads the bf16
+  hot store as it is; the CPU has no such kernel and multiplies f32 copies
+  (bf16 products are exact in f32 either way).
+* **No ``lax.cond``/``fori_loop``.**  The reference executor runs a static
+  trip count of masked updates; nothing on either path syncs with the
+  host.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from ..kernels import ops as kops
+from . import state as st
+from .batch import stable_order
+from .paths import INF32, put, take
+
+I32 = torch.int32
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertPlaneConfig:
+    n_experts: int          # E
+    d_model: int
+    d_ff: int
+    hot_slots: int          # S: experts resident on the card
+    topk: int
+    fetch_budget: int = 8   # experts fetched per step
+    capacity: int = 0       # tokens per slot buffer (0 -> derive)
+    dtype: torch.dtype = torch.bfloat16
+    fetch_mode: str = "batch"   # "batch" (vectorized) | "reference" (scalar)
+    kernel_impl: str = "auto"   # kernels.ops dispatch for the batched movers
+    faults: object = None       # core.faults.Schedule (None = no faults)
+
+
+# fields with a trash row
+_SLOT_AXIS0 = ("hot_wi", "hot_wg", "hot_wo", "expert_of", "clock")  # [S+1]
+_EXPERT_AXIS0 = ("slot_of",)                                        # [E+1]
+
+
+@dataclasses.dataclass(eq=False)
+class ExpertPlaneState:
+    """Per-layer expert plane state; fields, order and dtypes as the JAX
+    ``ExpertPlaneState``, stored with one trash row on each scatter target.
+    The canonical far-tier expert weights (the slabs) stay in the params."""
+
+    hot_wi: torch.Tensor     # [S+1, d, f]
+    hot_wg: torch.Tensor     # [S+1, d, f]
+    hot_wo: torch.Tensor     # [S+1, f, d]
+    slot_of: torch.Tensor    # [E+1] int32 (-1 far)
+    expert_of: torch.Tensor  # [S+1] int32 (-1 free)
+    clock: torch.Tensor      # [S+1] int32
+    access: torch.Tensor     # [E] int32 activation counters (profiling)
+    step: torch.Tensor       # [] int32
+
+    _fields = ()  # filled below
+
+    def view(self, name: str) -> torch.Tensor:
+        """The logical (trash-free) tensor of field ``name``."""
+        x = getattr(self, name)
+        return x[:-1] if name in _SLOT_AXIS0 + _EXPERT_AXIS0 else x
+
+    def clone(self) -> "ExpertPlaneState":
+        return ExpertPlaneState(**{k: getattr(self, k).clone()
+                                   for k in self._fields})
+
+
+ExpertPlaneState._fields = tuple(f.name for f in
+                                 dataclasses.fields(ExpertPlaneState))
+
+
+def init(cfg: ExpertPlaneConfig, device="cuda") -> ExpertPlaneState:
+    dev = st.resolve_device(device)
+    S, d, f, E = cfg.hot_slots, cfg.d_model, cfg.d_ff, cfg.n_experts
+    if cfg.fetch_budget > S:
+        raise ValueError(f"fetch_budget {cfg.fetch_budget} > hot_slots {S}")
+    i32 = dict(dtype=I32, device=dev)
+    return ExpertPlaneState(
+        hot_wi=torch.zeros((S + 1, d, f), dtype=cfg.dtype, device=dev),
+        hot_wg=torch.zeros((S + 1, d, f), dtype=cfg.dtype, device=dev),
+        hot_wo=torch.zeros((S + 1, f, d), dtype=cfg.dtype, device=dev),
+        slot_of=torch.full((E + 1,), -1, **i32),
+        expert_of=torch.full((S + 1,), -1, **i32),
+        clock=torch.zeros((S + 1,), **i32),
+        access=torch.zeros((E,), **i32),
+        step=torch.zeros((), **i32),
+    )
+
+
+class ExpertFetchPlan(NamedTuple):
+    """Fixed-shape ingress plan for one decode step: one entry per fetch
+    budget slot."""
+    expert: torch.Tensor  # [budget] int32 expert to fetch (-1 = no-op)
+    slot: torch.Tensor    # [budget] int32 destination slot (distinct entries)
+
+
+def plan_fetch(cfg: ExpertPlaneConfig, s: ExpertPlaneState,
+               needed_mask: torch.Tensor) -> ExpertFetchPlan:
+    """One vectorized fetch plan: missing needed experts (up to
+    ``fetch_budget``, lowest ids first) paired with victim slots from one
+    stable sort of the clocks (slots hosting experts needed this step are
+    pinned to the end).  A faulted fetch drops out of the plan here: it
+    claims no slot and displaces no resident expert."""
+    S, B = cfg.hot_slots, cfg.fetch_budget
+    missing = needed_mask & (s.view("slot_of") < 0)
+    _, fetch_ids = stable_order(missing.to(I32), descending=True)
+    fetch_ids = fetch_ids[:B]
+    expert = torch.where(missing[fetch_ids], fetch_ids, -1)
+
+    # tick = s.step: moe_decode bumps the step before planning
+    fc = cfg.faults
+    if fc is not None and fc.active:
+        fail = (expert >= 0) & fc.fetch_fail(s.step, expert.clamp_min(0))
+        expert = torch.where(fail, -1, expert)
+
+    owner = s.view("expert_of")
+    hosted_needed = (owner >= 0) & needed_mask[owner.clamp_min(0)]
+    score = torch.where(hosted_needed, INF32, s.view("clock"))
+    _, victims = stable_order(score)
+    return ExpertFetchPlan(expert=expert, slot=victims[:B])
+
+
+def _exec_fetch_batch(cfg: ExpertPlaneConfig, s: ExpertPlaneState,
+                      plan: ExpertFetchPlan, slab_wi, slab_wg, slab_wo
+                      ) -> ExpertPlaneState:
+    """The plan with batched data movement: every expert's weights arrive
+    in ONE ``kernels.gather_rows`` call per tensor (one expert is one pool
+    row), and the hot-store insert is a leading-axis scatter.  Fetched
+    experts are missing and displaced ones resident (disjoint ids), victim
+    slots distinct.  As in JAX, a -1 entry still gathers expert 0's row,
+    which the masked scatter then drops into the trash slot."""
+    E, S, d, f = cfg.n_experts, cfg.hot_slots, cfg.d_model, cfg.d_ff
+    e, slot = plan.expert, plan.slot
+    ok = e >= 0
+    safe_e = e.clamp_min(0)
+    wi = kops.gather_rows(slab_wi.reshape(E, d * f), safe_e,
+                          impl=cfg.kernel_impl, masked=False)
+    wg = kops.gather_rows(slab_wg.reshape(E, d * f), safe_e,
+                          impl=cfg.kernel_impl, masked=False)
+    wo = kops.gather_rows(slab_wo.reshape(E, f * d), safe_e,
+                          impl=cfg.kernel_impl, masked=False)
+
+    sdst = torch.where(ok, slot, S)                      # trash slot = drop
+    old = s.expert_of[slot]
+    put(s.slot_of, torch.where(ok & (old >= 0), old, E), -1)
+    s.hot_wi.view(S + 1, d * f)[sdst] = wi.to(cfg.dtype)
+    s.hot_wg.view(S + 1, d * f)[sdst] = wg.to(cfg.dtype)
+    s.hot_wo.view(S + 1, f * d)[sdst] = wo.to(cfg.dtype)
+    s.slot_of[torch.where(ok, e, E)] = slot
+    s.expert_of[sdst] = e
+    s.clock[sdst] = s.step
+    return s
+
+
+def _exec_fetch_reference(cfg: ExpertPlaneConfig, s: ExpertPlaneState,
+                          plan: ExpertFetchPlan, slab_wi, slab_wg, slab_wo
+                          ) -> ExpertPlaneState:
+    """Scalar oracle: the identical plan one expert at a time, each a
+    masked update (a masked-off write lands in a trash row)."""
+    S = cfg.hot_slots
+    for i in range(cfg.fetch_budget):
+        e, slot = plan.expert[i], plan.slot[i]
+        do = e >= 0
+        old = take(s.expert_of, slot)
+        put(s.slot_of, old, -1, do & (old >= 0))
+        src = e.clamp_min(0).reshape(1).long()
+        dst = torch.where(do, slot, S).reshape(1).long()
+        s.hot_wi[dst] = slab_wi.index_select(0, src).to(cfg.dtype)
+        s.hot_wg[dst] = slab_wg.index_select(0, src).to(cfg.dtype)
+        s.hot_wo[dst] = slab_wo.index_select(0, src).to(cfg.dtype)
+        put(s.slot_of, e, slot, do)
+        put(s.expert_of, slot, e, do)
+        put(s.clock, slot, s.step, do)
+    return s
+
+
+def ensure_resident(cfg: ExpertPlaneConfig, s: ExpertPlaneState,
+                    needed_mask: torch.Tensor, slab_wi, slab_wg, slab_wo,
+                    *, mode: str | None = None) -> ExpertPlaneState:
+    """Fetch up to ``fetch_budget`` missing needed experts (plan-then-
+    execute).  ``mode`` selects the executor ("batch" | "reference",
+    default ``cfg.fetch_mode``); both replay the identical plan."""
+    mode = mode or cfg.fetch_mode
+    if mode not in ("batch", "reference"):
+        raise ValueError(f"unknown fetch mode: {mode!r}")
+    plan = plan_fetch(cfg, s, needed_mask)
+    if mode == "reference":
+        return _exec_fetch_reference(cfg, s, plan, slab_wi, slab_wg, slab_wo)
+    return _exec_fetch_batch(cfg, s, plan, slab_wi, slab_wg, slab_wo)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` with an f32 result (``preferred_element_type=
+    f32``), without an f32 copy of ``b`` on the card."""
+    if a.device.type == "cpu" or a.dtype == torch.float32:
+        return torch.bmm(a.to(torch.float32), b.to(torch.float32))
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+def moe_decode(cfg: ExpertPlaneConfig, s: ExpertPlaneState, router,
+               x: torch.Tensor, slab_wi, slab_wg, slab_wo,
+               *, mode: str | None = None):
+    """x: [T, d] decode-token activations; router: [d, E].
+    Returns (y [T, d], state).  Tokens whose expert could not be made
+    resident within the fetch budget are dropped for that expert (their
+    gate weight is re-normalized away); so are tokens past a slot's
+    capacity."""
+    T, d = x.shape
+    E, S, K = cfg.n_experts, cfg.hot_slots, cfg.topk
+    C = cfg.capacity or max(8, -(-T * K * 2 // S))
+    dev = x.device
+    s.step = s.step + 1
+
+    logits = x.to(torch.float32) @ router.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    gate, expert = stable_order(probs, descending=True)
+    gate, expert = gate[:, :K], expert[:, :K]                 # [T, K]
+
+    flat_e = expert.reshape(-1)
+    needed = torch.zeros((E,), dtype=torch.bool, device=dev)
+    put(needed, flat_e, True)
+    ensure_resident(cfg, s, needed, slab_wi, slab_wg, slab_wo, mode=mode)
+    s.access += needed.to(I32)
+    owner = s.view("expert_of")
+    hosted = (owner >= 0) & needed[owner.clamp_min(0)]
+    s.view("clock").copy_(torch.where(hosted, s.step, s.view("clock")))
+
+    # dispatch by SLOT (smart-pointer indirection into the hot store)
+    slot = s.slot_of[flat_e]                                  # [T*K] (-1 dropped)
+    key = torch.where(slot >= 0, slot, S)
+    sort_idx = torch.argsort(key, stable=True)
+    sorted_slot = key[sort_idx]
+    pos = torch.arange(T * K, dtype=I32, device=dev)
+    seg_start = torch.full((S + 1,), T * K, dtype=I32, device=dev)
+    seg_start.scatter_reduce_(0, sorted_slot.long(), pos, "amin")
+    rank_sorted = pos - seg_start[sorted_slot]
+    rank = torch.empty_like(pos).scatter_(0, sort_idx, rank_sorted)
+    keep = (slot >= 0) & (rank < C)
+    dst = torch.where(keep, slot * C + rank, S * C)
+
+    xe = torch.zeros((S * C + 1, d), dtype=cfg.dtype, device=dev)
+    xe[dst] = x.to(cfg.dtype).repeat_interleave(K, dim=0)
+    xe = xe[:-1].view(S, C, d)
+
+    g = _bmm_f32(xe, s.hot_wg[:S])
+    i = _bmm_f32(xe, s.hot_wi[:S])
+    h = (torch.nn.functional.silu(g) * i).to(cfg.dtype)
+    ye = _bmm_f32(h, s.hot_wo[:S]).to(cfg.dtype)
+    ye = torch.cat([ye.reshape(S * C, d),
+                    torch.zeros((1, d), dtype=cfg.dtype, device=dev)])
+
+    yt = ye[dst].view(T, K, d).to(torch.float32)
+    w = torch.where(keep.view(T, K), gate, 0.0)
+    w = w / w.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    y = torch.einsum("tkd,tk->td", yt, w)
+    return y.to(x.dtype), s

@@ -8,17 +8,23 @@ on the card (PyTorch port of ``repro.launch.serve``).
   # the same at a small size on the CPU (plain PyTorch kernels):
   PYTHONPATH=src python -m repro_torch.launch.serve --objects 512 --device cpu
 
-``--mode lm`` (decoding through the plane-managed KV cache) waits for the
-model slice of the port and raises.
+  # LM decode with the plane-managed KV cache (smoke config, f32):
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+      --arch llama3-8b --tokens 32 --batch 4 [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import time
 
 import numpy as np
+import torch
 
+from .. import configs as cfgs
 from ..core.layout import PlaneConfig
 from ..data import kvworkload
+from ..models import api
 from ..serving.engine import Engine, EngineConfig
 
 
@@ -54,6 +60,36 @@ def serve_kv(args):
     print(f"  paging fraction: {rep['paging_fraction']:.2f}")
 
 
+def serve_lm(args):
+    """Greedy decode of ``--tokens`` tokens for ``--batch`` sequences with
+    the smoke config of ``--arch`` in f32, random weights from seed 0."""
+    cfg = dataclasses.replace(cfgs.get_smoke(args.arch), dtype=torch.float32)
+    shape = cfgs.ShapeConfig("serve", 1024, args.batch, "decode")
+    params = api.init_params(cfg, seed=0, device=args.device)
+    state = api.init_decode_state(cfg, shape, device=args.device)
+    dev = state.lengths.device
+    step = api.decode_step(cfg, shape)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    tok = torch.randint(0, cfg.vocab, (args.batch,), generator=g, device=dev,
+                        dtype=torch.int32)
+    state, logits = step(params, state, tok)            # warm-up
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.time()
+    toks = []
+    for _ in range(args.tokens):
+        tok = (logits.argmax(dim=-1) % cfg.vocab).to(torch.int32)
+        state, logits = step(params, state, tok)
+        toks.append(tok)
+    sample = [int(t[0]) for t in toks[:16]]             # syncs the device
+    dt = time.time() - t0
+    print(f"[serve:lm] arch={args.arch} batch={args.batch} "
+          f"decoded {args.tokens} tokens in {dt:.2f}s "
+          f"({args.tokens * args.batch / dt:.1f} tok/s) device={dev}")
+    print(f"  sample continuation: {sample}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--mode", choices=["kv", "lm"], default="kv")
@@ -72,9 +108,9 @@ def main(argv=None):
     p.add_argument("--tokens", type=int, default=32)
     args = p.parse_args(argv)
     if args.mode == "lm":
-        raise NotImplementedError("--mode lm: the model slice of the port "
-                                  "is not ported yet")
-    serve_kv(args)
+        serve_lm(args)
+    else:
+        serve_kv(args)
 
 
 if __name__ == "__main__":

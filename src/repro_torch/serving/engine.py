@@ -55,9 +55,8 @@ class EngineConfig:
     plane: str = "hybrid"           # hybrid | paging | object
     batch: int = 64                 # requests per engine tick
     evac_every: int = 64            # hybrid-plane evacuation period (ticks)
-    # object plane: free frames its reclaim loop restores after each batch
-    # (the JAX engine never passes it on, so its object plane always
-    # reclaims to the default of 2; the two agree at that default)
+    # kept for the JAX field set; unused there and here: the object plane
+    # always reclaims to execute_object_access's default of 2 free frames
     reclaim_free_target: int = 2
     mode: str = "batch"             # plan-then-execute engine | "reference" oracle
     dispatch: str = "pipelined"     # "pipelined" double-buffer | "sync"
@@ -216,9 +215,7 @@ class Engine:
             self.reclaim = baselines.ObjectReclaim()
             self._plan_kw = dict(all_runtime=True)
             self._exec = functools.partial(
-                batch_lib.execute_object_access,
-                reclaim_free_target=cfg.reclaim_free_target,
-                reclaim=self.reclaim)
+                batch_lib.execute_object_access, reclaim=self.reclaim)
         self._epoch_on = cfg.plane == "hybrid" and (
             cfg.epoch_every > 0 or cfg.epoch_watermark_bytes > 0)
         if cfg.plane == "hybrid" and cfg.evac_budget > 0:

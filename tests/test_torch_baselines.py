@@ -25,6 +25,8 @@ from repro.core import offload as joffload
 from repro.core import state as jstate
 from repro.core import sync as jsync
 from repro.core.layout import PlaneConfig as JConfig
+from repro.serving.engine import Engine as JEngine
+from repro.serving.engine import EngineConfig as JEngineConfig
 from repro_torch import convert
 from repro_torch.core import baselines as tbase
 from repro_torch.core import faults as tfaults
@@ -33,6 +35,7 @@ from repro_torch.core import state as tstate
 from repro_torch.core import sync as tsync
 from repro_torch.core.layout import PlaneConfig
 from repro_torch.launch import serve
+from repro_torch.serving.engine import Engine, EngineConfig
 
 N_OBJS, DIM = 96, 4
 FAULTS = dict(seed=5, fail_prob=0.25, egress_prob=0.25)
@@ -215,6 +218,24 @@ def test_reclaim_bound_skips_reads_and_changes_nothing():
     assert_port_states_equal(a, b, "kept vs fresh reclaim")
     assert int(a.stats.obj_outs) > 0
     assert 0 < rec.reads < calls + rec.rounds
+
+
+def test_object_engine_ignores_reclaim_free_target_as_jax_does():
+    """The JAX engine binds the object plane's access without
+    ``reclaim_free_target``, so it always reclaims to 2 free frames; the
+    port's engine must do the same at any other value of the field."""
+    jc, tc, data = make(num_frames=12)
+    ekw = dict(plane="object", batch=16, dispatch="sync",
+               reclaim_free_target=4)
+    je = JEngine(JEngineConfig(**ekw), jc, jnp.asarray(data))
+    te = Engine(EngineConfig(**ekw), tc, data, device="cpu")
+    for step, ids in traffic("random", 16, N_OBJS, seed=6):
+        rows = te.serve_batch(ids).numpy()
+        np.testing.assert_array_equal(rows, np.asarray(je.serve_batch(ids)),
+                                      err_msg=f"rows, step {step}")
+        assert_same_state(je.state, te.state, f"step {step}")
+    assert te.counters == je.counters
+    assert int(te.state.stats.obj_outs) > 0 and int(te.state.stats.lru_scans) > 0
 
 
 def test_sync_matches_jax():

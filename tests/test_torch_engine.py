@@ -115,7 +115,7 @@ def test_unported_engine_paths_raise(bad):
 def test_launcher_recipe_and_cpu_run(capsys):
     """``kv_plane_config`` is the JAX launcher's recipe
     (``repro.launch.serve.serve_kv``), and the launcher serves on the CPU
-    when asked to."""
+    when asked to, in both modes."""
     for objects, local in [(1000, 0.25), (8_388_608, 0.25), (64, 0.5)]:
         dp = -(-objects // 8)
         want = JConfig(num_objs=objects, obj_dim=32, page_objs=8,
@@ -129,8 +129,10 @@ def test_launcher_recipe_and_cpu_run(capsys):
     serve.main(["--objects", "512", "--steps", "4", "--batch", "16",
                 "--device", "cpu"])
     assert "plane=hybrid" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError):
-        serve.main(["--mode", "lm", "--device", "cpu"])
+    serve.main(["--mode", "lm", "--device", "cpu", "--tokens", "2",
+                "--batch", "2"])
+    assert "[serve:lm] arch=llama3-8b batch=2 decoded 2 tokens" in \
+        capsys.readouterr().out
 
 
 def test_oversized_batch_and_wrong_data_shape_raise():

@@ -9,9 +9,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import kvplane, state
+from repro_torch import configs
+from repro_torch.core import expertplane, kvplane, state
 from repro_torch.core.layout import PlaneConfig
 from repro_torch.launch import serve
+from repro_torch.models import api
 from repro_torch.serving.engine import Engine, EngineConfig
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -44,7 +46,10 @@ def test_port_package_is_complete():
                 "kernels/compact.py", "kernels/cat_decay.py",
                 "kernels/topk_pages.py", "kernels/paged_attention.py",
                 "kernels/cat_update.py", "core/kvplane.py",
-                "data/kvworkload.py", "serving/engine.py", "launch/serve.py"):
+                "data/kvworkload.py", "serving/engine.py", "launch/serve.py",
+                "core/expertplane.py", "models/common.py",
+                "models/attention.py", "models/mlp.py", "models/lm.py",
+                "models/api.py", "configs/__init__.py"):
         assert (port / mod).exists(), mod
         assert (jaxpkg / mod).exists(), mod
     for src in ("gather_rows.cu", "compact_pages.cu", "cat_decay.cu",
@@ -63,10 +68,19 @@ def test_entry_points_default_to_cuda():
     data = np.zeros((64, 4), np.float32)
     kv_cfg = kvplane.KVPlaneConfig(kv_heads=1, head_dim=8, page_tokens=4,
                                    num_pages=2, num_frames=2, batch=1)
+    ep_cfg = expertplane.ExpertPlaneConfig(n_experts=4, d_model=8, d_ff=8,
+                                           hot_slots=2, topk=1,
+                                           fetch_budget=1)
+    lm = configs.get_smoke("llama3-8b")
+    shape = configs.ShapeConfig("t", 64, 1, "decode")
     calls = [lambda: state.create(CFG, torch.from_numpy(data)),
              lambda: kvplane.init(kv_cfg),
              lambda: Engine(EngineConfig(batch=8), CFG, data),
-             lambda: serve.main(["--objects", "64", "--steps", "1"])]
+             lambda: serve.main(["--objects", "64", "--steps", "1"]),
+             lambda: expertplane.init(ep_cfg),
+             lambda: api.init_decode_state(lm, shape),
+             lambda: serve.main(["--mode", "lm", "--tokens", "1",
+                                 "--batch", "1"])]
     if torch.cuda.is_available():
         assert state.create(CFG, torch.from_numpy(data)).slab.is_cuda
         return
