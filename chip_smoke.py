@@ -12,6 +12,13 @@ Phases (any failure exits non-zero, with no result line):
  3. kernels   each CUDA kernel against its plain PyTorch version on the
               card, at the shapes the serving path gives it, with times;
               the per-launch floor (an empty kernel timed the same way)
+    rowcopy   the row-copy kernels' regimes against their plain versions
+              bit for bit: unaligned widths (4- and 1-byte words), 1 MB rows
+              through the tiles regime with masked rows, all-masked index
+              sets, R = 0; gather_rows at the KV page-in's 16 KiB rows timed
+              beside index_select; gather_rows_into at the
+              object-ingress shape, trash row included, timed beside
+              index_select + index_put_
  4. oracles   at 512 objects: the batched executor against the scalar
               reference executor, bit for bit, on mcd_cl and df_scan traffic
               with evacuations and epochs; a pipelined engine against a
@@ -69,11 +76,13 @@ Phases (any failure exits non-zero, with no result line):
               at the step's shape against its plain version and SDPA
 14. lmexpert  kimi-k2 at full width, one layer deep, through the expert
               plane (384 experts, 32 hot slots, fetch budget 8): as 13,
-              plus gather_rows 3 launches a step, every resident slot equal
-              to its expert's slab rows, batch == reference executor on a
-              clone, paged_attention at head_dim 112, gather_rows at the
-              expert fetch's 29.36 MB rows against index_select, the
-              whole fetch's device time
+              plus gather_rows 3 launches a step (all gather_rows_into),
+              every resident slot equal to its expert's slab rows, batch ==
+              reference executor on a clone, paged_attention at head_dim
+              112, gather_rows at the expert fetch's 29.36 MB rows
+              against index_select, gather_rows_into
+              there against its plain version, the whole fetch's device
+              time
 Every paged_attention launch of 11 to 14 is on the tensor cores.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -210,7 +219,8 @@ def phase_build(build) -> None:
     log(f"[build] {so.name} in {time.time() - t0:.1f}s "
         f"(nvcc {build.build_seconds:.1f}s)")
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("---"):
+        if ("registers" in line or "spill" in line or "entry function" in line
+                or line.startswith("---")):
             log(f"[build]   {line.strip()}")
 
 
@@ -258,16 +268,6 @@ def phase_kernels(torch, ops, ref, state, card: str, rate: float) -> list:
             f"library {'-' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}, "
             f"bound {bound_ms * 1e3:.3f} us by {bytes_moved:.0f} B) [{card}]")
 
-    def cycler(items):
-        """Each call the next input set: the serving path finds its rows
-        cold in L2, so the timed calls do not reuse one index set."""
-        pos = [0]
-
-        def nxt():
-            pos[0] += 1
-            return items[pos[0] % len(items)]
-        return nxt
-
     def mean_valid(sets):
         return sum(int((x >= 0).sum()) for x in sets) / len(sets)
 
@@ -300,16 +300,24 @@ def phase_kernels(torch, ops, ref, state, card: str, rate: float) -> list:
     l_ms = device_ms(torch, lambda: page_rows.index_select(0, pick_c()))
     w_ms = device_ms(torch, lambda: ops.gather_pages(state.slab[None],
                                                      pick()))
+    check(torch.equal(ops.gather_rows(page_rows, psets[0]),
+                      ref.gather_rows_ref(page_rows, psets[0])),
+          "gather_rows on 1 KiB page rows: kernel disagrees with its plain "
+          "version")
     check(torch.equal(ops.gather_pages(state.slab[None], psets[0]),
                       ops.gather_pages(state.slab[None], psets[0],
                                        impl="ref")),
           "gather_pages: kernel disagrees with its plain version")
     pb = pvalid * page_b + (BATCH + Q) * page_b + (BATCH + Q) * 4
     log(f"[kernel] gather_rows on 1 KiB page rows (gather_pages, R+Q="
-        f"{BATCH + Q}): equal to plain; {k_ms * 1e3:.2f} us (plain "
-        f"{p_ms * 1e3:.2f} us, library {l_ms * 1e3:.2f} us, whole "
-        f"gather_pages wrapper {w_ms * 1e3:.2f} us, bound "
-        f"{pb / rate * 1e6:.3f} us by {pb:.0f} B) [{card}]")
+        f"{BATCH + Q}, plan {plan_of(page_rows, psets[0])}): equal to plain "
+        f"(tolerance 0); {k_ms * 1e3:.2f} us (plain {p_ms * 1e3:.2f} us, "
+        f"library index_select {l_ms * 1e3:.2f} us, whole gather_pages "
+        f"wrapper {w_ms * 1e3:.2f} us, bound {pb / rate * 1e6:.3f} us by "
+        f"{pb:.0f} B) [{card}]")
+    page_shape = dict(rows=BATCH + Q, row_bytes=page_b, ms=k_ms,
+                      plain_ms=p_ms, library_ms=l_ms, bound_ms=pb / rate * 1e3,
+                      gather_pages_ms=w_ms, max_abs_err=0.0)
 
     # compact_pages: M=4 destination pages of P=8 rows of D=32 (frame pool)
     frame_rows = state.frames.view(-1, D)
@@ -358,7 +366,187 @@ def phase_kernels(torch, ops, ref, state, card: str, rate: float) -> list:
         torch.int32), ref.cat_decay_ref(cat, ema, alloc, 0.7).view(
             torch.int32)), "cat_decay(0.7): not bit-exact")
     torch.cuda.synchronize()
+    results[0]["shapes"] = {"page_rows_1k": page_shape}
     return results
+
+
+def cycler(items):
+    """Each call the next input set: the serving path finds its rows cold
+    in L2, so the timed calls do not reuse one index set."""
+    pos = [0]
+
+    def nxt():
+        pos[0] += 1
+        return items[pos[0] % len(items)]
+    return nxt
+
+
+def dst_pool_idx(d_i, pool):
+    """(dst_idx, pool, idx) for gather_rows_into from a (dst_idx, idx)
+    pair."""
+    return d_i[0], pool, d_i[1]
+
+
+def plan_of(pool, idx) -> str:
+    """The row-copy launch plan the gather_rows wrapper takes for these
+    tensors, in short."""
+    from repro_torch.kernels import gather_objects as gmod
+    rb = pool.shape[1] * pool.element_size()
+    p = gmod.launch_plan(max(idx.shape[0], 1), rb,
+                         word=gmod.word_bytes(rb, pool.data_ptr()))
+    return (f"{p.regime}, {p.word_bytes} B words, {p.lanes} lanes a row, "
+            f"grid {p.grid_x} x {p.grid_y}"
+            f"{', streaming' if p.streaming else ''}")
+
+
+def phase_row_copy(torch, ops, ref, gmod, state, card: str,
+                   rate: float) -> dict:
+    """The row-copy kernels' regimes against their plain versions, bit for
+    bit, at the shapes they meet beyond phase_kernels': unaligned widths
+    (4-byte and 1-byte words), long rows through the tiles regime with
+    masked rows and a ragged last tile, all-masked index sets, R = 0; and
+    gather_rows_into at the object-ingress shape, trash row included.
+    Returns the timed shapes for the kernels' JSON line."""
+    dev = state.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 11)
+    shapes = {}
+
+    def idx_for(r, hi, p_masked):
+        i = torch.randint(0, hi, (r,), generator=g, device=dev,
+                          dtype=torch.int32)
+        drop = torch.rand((r,), generator=g, device=dev) < p_masked
+        return torch.where(drop, -1, i)
+
+    def same(tag, got, want):
+        check(got.dtype == want.dtype and got.shape == want.shape
+              and torch.equal(got.view(torch.uint8), want.view(torch.uint8)),
+              f"[rowcopy] {tag}: kernel disagrees with its plain version")
+
+    def bytes_of(pool, idx):
+        rb = pool.shape[1] * pool.element_size()
+        return int((idx >= 0).sum()) * rb + idx.shape[0] * (rb + 4)
+
+    # unaligned and odd widths, each regime and word
+    cases = []
+    raw = torch.randint(0, 256, (64 * 1024 * 1024 + 64,), generator=g,
+                        device=dev, dtype=torch.uint8)
+    cases.append(("132 B rows (f32 x 33, 4-byte words)",
+                  raw[:65536 * 132].view(torch.float32).view(65536, 33),
+                  idx_for(BATCH, 65536, 0.25)))
+    cases.append(("130 B rows (bf16 x 65, 1-byte words)",
+                  raw[:65536 * 130].view(torch.bfloat16).view(65536, 65),
+                  idx_for(BATCH, 65536, 0.25)))
+    cases.append(("128 B rows at a pointer 2 B off 16 (1-byte words)",
+                  raw[2:2 + 65536 * 128].view(65536, 128),
+                  idx_for(BATCH, 65536, 0.25)))
+    cases.append(("4,098 B rows (tiles regime, 1-byte words)",
+                  raw[:4096 * 4098].view(4096, 4098), idx_for(64, 4096, 0.25)))
+    long_pool = raw[:64 * 1_000_016].view(64, 1_000_016)
+    long_idx = idx_for(16, 64, 0.3)
+    long_idx[0] = -1
+    cases.append(("1,000,016 B rows, masked rows, ragged last tile",
+                  long_pool, long_idx))
+    cases.append(("all-masked 128 B rows", raw[:65536 * 128].view(65536, 128),
+                  torch.full((BATCH,), -1, dtype=torch.int32, device=dev)))
+    cases.append(("all-masked 1,000,016 B rows", long_pool,
+                  torch.full((8,), -1, dtype=torch.int32, device=dev)))
+    for tag, pool, idx in cases:
+        got = gmod.gather_rows(pool, idx)
+        same(tag, got, ref.gather_rows_ref(pool, idx))
+        log(f"[rowcopy] {tag}, R={idx.shape[0]} (plan "
+            f"{plan_of(pool, idx)}): equal to plain, bit for bit")
+    # compact_pages at an unaligned width, and R = 0 on every entry point
+    cp_pool = cases[1][1]
+    cp_plan = idx_for(4 * 8, cp_pool.shape[0], 0.25)
+    same("compact_pages, 130 B rows",
+         ops.compact_pages(cp_pool, cp_plan, page_objs=8),
+         ref.compact_pages_ref(cp_pool, cp_plan, 8))
+    n0 = ops.launch_counts()
+    empty = torch.zeros((0,), dtype=torch.int32, device=dev)
+    same("R = 0", ops.gather_rows(cp_pool, empty),
+         ref.gather_rows_ref(cp_pool, empty))
+    same("R = 0 (compact_pages)", ops.compact_pages(cp_pool, empty,
+                                                    page_objs=8),
+         ref.compact_pages_ref(cp_pool, empty, 8))
+    before = cp_pool.clone()
+    ops.gather_rows_into(cp_pool, empty, torch.ones(
+        (4, 65), dtype=torch.bfloat16, device=dev), empty)
+    same("R = 0 (gather_rows_into)", cp_pool, before)
+    check(ops.launch_counts() == n0, "[rowcopy] R = 0 launched a kernel")
+    log("[rowcopy] compact_pages at 130 B rows equal to plain; R = 0: "
+        "gather_rows, compact_pages and gather_rows_into launch nothing")
+    del raw, cases, long_pool, before
+
+    # gather_rows at the KV page-in's shape (gather_pages on long_500k):
+    # SPARSE_FETCH pages of each of the kv heads, one 16 KiB bf16 page row
+    # each, from a 256 MiB slab view
+    kv = torch.randn((16_384, PAGE_TOKENS * LLAMA_HEAD_DIM), generator=g,
+                     device=dev, dtype=torch.bfloat16)
+    R = SPARSE_FETCH * LLAMA_KV_HEADS
+    ksets = [idx_for(R, kv.shape[0], 0.0) for _ in range(16)]
+    same("16 KiB KV page rows", ops.gather_rows(kv, ksets[0]),
+         ref.gather_rows_ref(kv, ksets[0]))
+    pick, pick_c = cycler(ksets), cycler([x.long() for x in ksets])
+    k_ms = device_ms(torch, lambda: ops.gather_rows(kv, pick()))
+    p_ms = device_ms(torch, lambda: ref.gather_rows_ref(kv, pick()))
+    l_ms = device_ms(torch, lambda: kv.index_select(0, pick_c()))
+    rb = kv.shape[1] * kv.element_size()
+    nb = bytes_of(kv, ksets[0])
+    shapes["kv_page_rows_16k"] = dict(rows=R, row_bytes=rb, ms=k_ms,
+                                      plain_ms=p_ms, library_ms=l_ms,
+                                      bound_ms=nb / rate * 1e3,
+                                      max_abs_err=0.0)
+    log(f"[rowcopy] gather_rows at the KV page-in (R={R} rows of {rb} B, "
+        f"plan {plan_of(kv, ksets[0])}): equal to plain; {k_ms * 1e3:.2f} us "
+        f"(plain {p_ms * 1e3:.2f} us, library index_select "
+        f"{l_ms * 1e3:.2f} us, bound {nb / rate * 1e6:.3f} us by bytes) "
+        f"[{card}]")
+    del kv
+
+    # gather_rows_into at the object-ingress shape: slab rows into the
+    # frame pool's rows, masked moves (zeros) onto the trash frame's row
+    P, D = state.slab.shape[1], state.slab.shape[2]
+    slab_rows = state.slab.view(-1, D)
+    frame_rows = state.frames.view(-1, D)
+    trash = frame_rows.shape[0] - P
+    sets = []
+    for _ in range(8):
+        src = idx_for(BATCH, slab_rows.shape[0] - P, 0.3)
+        dst = torch.randperm(trash, generator=g, device=dev)[:BATCH].to(
+            torch.int32)
+        sets.append((torch.where(src >= 0, dst, trash).to(torch.int32), src))
+    a, b = frame_rows.clone(), frame_rows.clone()
+    d0, i0 = sets[0]
+    ops.gather_rows_into(a, d0, slab_rows, i0)
+    ref.gather_rows_into_ref(b, d0, slab_rows, i0)
+    same("gather_rows_into, object ingress (frames, trash row included)", a,
+         b)
+    check(int((i0 < 0).sum()) > 1, "[rowcopy] no shared trash row")
+    pick = cycler(sets)
+
+    def two_step():
+        d, i = pick()
+        a.index_put_((d.long(),), slab_rows.index_select(
+            0, i.clamp_min(0).long()))
+    k_ms = device_ms(torch, lambda: ops.gather_rows_into(
+        a, *dst_pool_idx(pick(), slab_rows)))
+    p_ms = device_ms(torch, lambda: ref.gather_rows_into_ref(
+        a, *dst_pool_idx(pick(), slab_rows)))
+    l_ms = device_ms(torch, two_step)
+    rb = D * slab_rows.element_size()
+    nb = sum(bytes_of(slab_rows, i) + 4 * BATCH for _, i in sets) / len(sets)
+    shapes["into_ingress"] = dict(rows=BATCH, row_bytes=rb, ms=k_ms,
+                                  plain_ms=p_ms, two_step_ms=l_ms,
+                                  bound_ms=nb / rate * 1e3, max_abs_err=0.0)
+    log(f"[rowcopy] gather_rows_into at object ingress (R={BATCH} rows of "
+        f"{rb} B into the frame pool, ~30% masked onto the trash row): equal "
+        f"to plain, trash row included; {k_ms * 1e3:.2f} us (plain "
+        f"{p_ms * 1e3:.2f} us, index_select + index_put_ {l_ms * 1e3:.2f} "
+        f"us, bound {nb / rate * 1e6:.3f} us by bytes) [{card}]")
+    del a, b
+    torch.cuda.synchronize()
+    return shapes
 
 
 def _states_equal(torch, convert, a, b) -> bool:
@@ -1798,9 +1986,11 @@ def phase_lm_expert(torch, ops, ref, configs, api, ep, convert, card: str,
     fetched0 = int((es.view("expert_of") >= 0).sum())
     state, tok, ms = greedy_run(torch, step, params, state, tok, LM_STEPS)
     launches = ops.launch_counts()
-    check(launches["gather_rows"] == 3 * LM_STEPS,
+    check(launches["gather_rows"] == 3 * LM_STEPS
+          and launches["gather_rows_into"] == 3 * LM_STEPS,
           f"[lmexpert] gather_rows launched {launches['gather_rows']} times "
-          f"in {LM_STEPS} steps (3 per step wanted)")
+          f"({launches['gather_rows_into']} in place) in {LM_STEPS} steps "
+          f"(3 per step wanted, all in place)")
     check(launches["paged_attention"] == LM_STEPS
           and launches["paged_attention_mma"] == LM_STEPS,
           f"[lmexpert] paged_attention launches {launches}")
@@ -1857,33 +2047,75 @@ def phase_lm_expert(torch, ops, ref, configs, api, ep, convert, card: str,
     pool = mp["wi"].view(E, D)
     sets = [torch.randperm(E, generator=g, device=dev)[:epc.fetch_budget].to(
         torch.int32) for _ in range(4)]
-    got = ops.gather_rows(pool, sets[0], masked=False)
-    plain = ref.gather_rows_ref(pool, sets[0])
-    check(torch.equal(got, plain), "[lmexpert] gather_rows disagrees with "
-                                   "its plain version at the expert shape")
-    del got, plain
-    pos = [0]
-
-    def pick():
-        pos[0] += 1
-        return sets[pos[0] % len(sets)]
-    g_ms = device_ms(torch, lambda: ops.gather_rows(pool, pick()), n=10,
-                     rounds=3)
+    check(torch.equal(ops.gather_rows(pool, sets[0]),
+                      ref.gather_rows_ref(pool, sets[0])),
+          "[lmexpert] gather_rows disagrees with its plain version at the "
+          "expert shape")
+    pick = cycler(sets)
+    # the kernel and index_select in turns (kernel, library, library,
+    # kernel): at these sizes the first of several timings in a row reads
+    # a few us slow, so each reports the mean of its two turns
+    turns = {"kernel": [], "library": []}
+    for who in ("kernel", "library", "library", "kernel"):
+        fn = ((lambda: ops.gather_rows(pool, pick())) if who == "kernel" else
+              (lambda: pool.index_select(0, pick().long())))
+        turns[who].append(device_ms(torch, fn, n=10, rounds=3))
+    g_ms = sum(turns["kernel"]) / 2
+    gl_ms = sum(turns["library"]) / 2
     gp_ms = device_ms(torch, lambda: ref.gather_rows_ref(pool, pick()), n=10,
                       rounds=3)
-    gl_ms = device_ms(torch, lambda: pool.index_select(0, pick().long()),
-                      n=10, rounds=3)
     R = epc.fetch_budget
     gb = 2 * R * D * pool.element_size() + 4 * R
     g_bnd = bound(gb, 0, rate, PEAK_BF16)
     log(f"[kernel] gather_rows at the expert fetch (R={R} rows of "
-        f"{D * pool.element_size() / 1e6:.2f} MB, bf16): equal to plain; "
+        f"{D * pool.element_size() / 1e6:.2f} MB, bf16; plan "
+        f"{plan_of(pool, sets[0])}): equal to plain; "
         f"{g_ms * 1e3:.2f} us (plain {gp_ms * 1e3:.2f} us, library "
         f"index_select {gl_ms * 1e3:.2f} us, bound {g_bnd[0] * 1e3:.2f} us "
-        f"by bytes, {100 * g_bnd[0] / g_ms:.0f}% of it) [{card}]")
+        f"by bytes, {100 * g_bnd[0] / g_ms:.0f}% of it; in turns kernel "
+        f"{turns['kernel'][0] * 1e3:.2f}, index_select "
+        f"{turns['library'][0] * 1e3:.2f}, "
+        f"{turns['library'][1] * 1e3:.2f}, kernel "
+        f"{turns['kernel'][1] * 1e3:.2f} us) [{card}]")
 
-    # the whole fetch of one step (3 gathers and 3 hot-store scatters) on a
-    # clone of the plane, replaying one plan of 8 misses
+    # gather_rows_into at the expert fetch's shape: a plan's 8 entries, two
+    # of them masked (expert 0's row onto the trash slot, as the fetch
+    # writes them), into a clone of the hot store's wi
+    S = epc.hot_slots
+    plans = []
+    for i in range(4):
+        e = sets[i].clone()
+        e[1::4] = -1
+        slot = torch.randperm(S, generator=g, device=dev)[:R].to(torch.int32)
+        plans.append((torch.where(e >= 0, slot, S).to(torch.int32),
+                      e.clamp_min(0)))
+    a = es.hot_wi.view(S + 1, D).clone()
+    b = a.clone()
+    ops.gather_rows_into(a, plans[0][0], pool, plans[0][1])
+    ref.gather_rows_into_ref(b, plans[0][0], pool, plans[0][1])
+    check(torch.equal(a, b), "[lmexpert] gather_rows_into disagrees with its "
+                             "plain version at the expert shape (trash slot "
+                             "included)")
+    del b
+    pick_p = cycler(plans)
+    i_ms = device_ms(torch, lambda: ops.gather_rows_into(
+        a, *dst_pool_idx(pick_p(), pool)), n=10, rounds=3)
+    ip_ms = device_ms(torch, lambda: ref.gather_rows_into_ref(
+        a, *dst_pool_idx(pick_p(), pool)), n=10, rounds=3)
+
+    def two_step():
+        d, i = pick_p()
+        a.index_put_((d.long(),), pool.index_select(0, i.long()))
+    il_ms = device_ms(torch, two_step, n=10, rounds=3)
+    del a
+    log(f"[kernel] gather_rows_into at the expert fetch ({R} entries, 2 "
+        f"onto the trash slot): equal to plain, trash slot included; "
+        f"{i_ms * 1e3:.2f} us (plain {ip_ms * 1e3:.2f} us, index_select + "
+        f"index_put_ {il_ms * 1e3:.2f} us, bound {g_bnd[0] * 1e3:.2f} us) "
+        f"[{card}]")
+
+    # the whole fetch of one step (3 gathers straight into the hot store)
+    # on a clone of the plane, replaying one plan of 8 misses
     ex = es.clone()
     needed = torch.zeros((E,), dtype=torch.bool, device=dev)
     needed[torch.randperm(E, generator=g, device=dev)[:60]] = True
@@ -1895,7 +2127,7 @@ def phase_lm_expert(torch, ops, ref, configs, api, ep, convert, card: str,
     f_bnd = bound(fb, 0, rate, PEAK_BF16)
     del ex
     log(f"[lmexpert] expert fetch of one step ({n_fetch} experts, 3 "
-        f"tensors: gather_rows then the hot-store scatter): {f_ms:.3f} ms "
+        f"tensors, gather_rows_into the hot store): {f_ms:.3f} ms "
         f"device time; bound {f_bnd[0]:.3f} ms by bytes (each fetched row "
         f"read once and written once into its slot) [{card}]")
 
@@ -1917,7 +2149,9 @@ def phase_lm_expert(torch, ops, ref, configs, api, ep, convert, card: str,
             "fetch_ms": f_ms, "fetch_bound_ms": f_bnd[0],
             "gather": {"ms": g_ms, "plain_ms": gp_ms, "library_ms": gl_ms,
                        "bound_ms": g_bnd[0], "max_abs_err": 0.0,
-                       "row_bytes": D * 2, "rows": R}}
+                       "row_bytes": D * 2, "rows": R,
+                       "into_ms": i_ms, "into_plain_ms": ip_ms,
+                       "into_two_step_ms": il_ms}}
 
 
 def main() -> int:
@@ -1933,7 +2167,7 @@ def main() -> int:
     from repro_torch.core import (baselines, batch, expertplane, faults,
                                   kvplane, plane, state)
     from repro_torch.data import kvworkload
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, gather_objects, ops, ref
     from repro_torch.launch import serve
     from repro_torch.models import api
     from repro_torch.serving import engine
@@ -1973,6 +2207,8 @@ def main() -> int:
         f"{time.time() - t0:.1f}s")
 
     kernels = phase_kernels(torch, ops, ref, eng.state, card, rate)
+    kernels[0]["shapes"].update(phase_row_copy(torch, ops, ref, gather_objects,
+                                               eng.state, card, rate))
     phase_oracles(torch, M)
 
     # ---- serve at full size ----------------------------------------------

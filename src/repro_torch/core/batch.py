@@ -6,8 +6,10 @@
    order, grow the prefetch-candidate section, and pair every planned
    page-in with a victim frame in one stable sort over the frame pool.
 2. **Execute**: the paging plan as masked scatters plus ONE
-   ``kernels.ops.gather_pages`` call; the runtime plan with prefix
-   arithmetic over the fill cursor plus ONE ``gather_rows`` call.
+   ``kernels.ops.gather_rows_into`` call (slab pages straight into their
+   frames); the runtime plan with prefix arithmetic over the fill cursor
+   plus ONE ``gather_rows_into`` call (slab rows straight into their
+   frame slots).  JAX gathers, then scatters; each row lands the same.
 3. **Finish**: one profiling scatter pass and one batched gather per tier.
 
 Batch semantics are those of the JAX engine (DESIGN.md §3): a negative id
@@ -312,9 +314,10 @@ def plan_access(cfg: PlaneConfig, s: st.PlaneState, obj_ids: torch.Tensor,
 def _exec_paging(cfg: PlaneConfig, s: st.PlaneState, plan: AccessPlan, *,
                  scalar: bool) -> st.PlaneState:
     """Execute the planned page-ins (demand + prefetch).  Batched: every
-    page-out as masked scatters, every page-in in ONE ``gather_pages``
-    call (safe: victims are distinct frames, evicted pages are resident,
-    fetched pages remote).  Scalar: the same plan one fetch at a time."""
+    page-out as masked scatters, every page-in in ONE
+    ``gather_rows_into`` call (safe: victims are distinct frames, evicted
+    pages are resident, fetched pages remote).  Scalar: the same plan one
+    fetch at a time."""
     V, F = cfg.num_vpages, cfg.num_frames
     fetch, vic, is_pf = plan.pg_fetch, plan.pg_victim, plan.pg_is_pf
     ok = fetch >= 0
@@ -331,12 +334,14 @@ def _exec_paging(cfg: PlaneConfig, s: st.PlaneState, plan: AccessPlan, *,
         return s
 
     paths.page_out_frames(cfg, s, vic, ok)
-    # ---- page-in: ONE batched gather over the slab page view ------------
+    # ---- page-in: ONE gather from the slab's page view straight into the
+    # frames (a masked fetch writes zeros into the trash frame F)
     vin = torch.where(ok, fetch, V)
-    pages = kops.gather_pages(s.slab[None], torch.where(ok, fetch, -1),
-                              impl=cfg.kernel_impl, masked=False)[0]
     fdst = torch.where(ok, vic, F)
-    s.frames[fdst] = pages
+    P, D = cfg.page_objs, cfg.obj_dim
+    kops.gather_rows_into(s.frames.view(F + 1, P * D), fdst,
+                          s.slab.view(-1, P * D), torch.where(ok, fetch, -1),
+                          impl=cfg.kernel_impl)
     put(s.backing, vin, LOCAL)
     s.frame_of[vin] = vic
     s.vpage_of[fdst] = torch.where(ok, fetch, -1)
@@ -401,8 +406,8 @@ def _exec_runtime(cfg: PlaneConfig, s: st.PlaneState, obj_plan: torch.Tensor,
                   n_move: torch.Tensor, *, scalar: bool) -> st.PlaneState:
     """Move the deduped miss objects onto the ingress fill page(s): append
     slots by prefix arithmetic over the fill cursor, fresh log pages
-    allocated before any row moves, then ONE ``gather_rows`` + scatter
-    (batched) or one row at a time (scalar)."""
+    allocated before any row moves, then ONE ``gather_rows_into`` into the
+    frame pool (batched) or one row at a time (scalar)."""
     P, V, F, O = cfg.page_objs, cfg.num_vpages, cfg.num_frames, cfg.num_objs
     R, D = obj_plan.shape[0], cfg.obj_dim
 
@@ -454,13 +459,13 @@ def _exec_runtime(cfg: PlaneConfig, s: st.PlaneState, obj_plan: torch.Tensor,
             put(s.cat.view(-1), dst, True, do)
             paths._kill_old_copy(cfg, s, v_old[k], slot_old[k], do)
     else:
-        # one batched gather (the CUDA object-ingress kernel on the card) ...
+        # one batched gather straight into the frame pool (the CUDA
+        # object-ingress kernel on the card); masked moves write zeros into
+        # the trash frame's first row
         src_flat = torch.where(valid, v_old * P + slot_old, -1)
-        rows = kops.gather_rows(s.slab.view(-1, D), src_flat,
-                                impl=cfg.kernel_impl)
-        # ... and one batched scatter into the frame pool
         f_dst = torch.where(valid, s.frame_of[v_new] * P + slot_new, F * P)
-        s.frames.view(-1, D)[f_dst] = rows
+        kops.gather_rows_into(s.frames.view(-1, D), f_dst, s.slab.view(-1, D),
+                              src_flat, impl=cfg.kernel_impl)
         dst_flat = torch.where(valid, v_new * P + slot_new, V * P)
         old_flat = torch.where(valid, v_old * P + slot_old, V * P)
         v_new_m = torch.where(valid, v_new, V)

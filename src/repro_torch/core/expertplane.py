@@ -151,28 +151,23 @@ def _exec_fetch_batch(cfg: ExpertPlaneConfig, s: ExpertPlaneState,
                       plan: ExpertFetchPlan, slab_wi, slab_wg, slab_wo
                       ) -> ExpertPlaneState:
     """The plan with batched data movement: every expert's weights arrive
-    in ONE ``kernels.gather_rows`` call per tensor (one expert is one pool
-    row), and the hot-store insert is a leading-axis scatter.  Fetched
-    experts are missing and displaced ones resident (disjoint ids), victim
-    slots distinct.  As in JAX, a -1 entry still gathers expert 0's row,
-    which the masked scatter then drops into the trash slot."""
-    E, S, d, f = cfg.n_experts, cfg.hot_slots, cfg.d_model, cfg.d_ff
+    in ONE ``kernels.gather_rows_into`` call per tensor (one expert is one
+    pool row), written straight into its victim slot of the hot store.
+    Fetched experts are missing and displaced ones resident (disjoint ids),
+    victim slots distinct.  As in JAX, a -1 entry still gathers expert 0's
+    row, which lands in the trash slot (JAX drops it).  The slabs must
+    hold the hot store's dtype: ``gather_rows_into`` refuses a mismatch."""
+    E, S = cfg.n_experts, cfg.hot_slots
     e, slot = plan.expert, plan.slot
     ok = e >= 0
     safe_e = e.clamp_min(0)
-    wi = kops.gather_rows(slab_wi.reshape(E, d * f), safe_e,
-                          impl=cfg.kernel_impl, masked=False)
-    wg = kops.gather_rows(slab_wg.reshape(E, d * f), safe_e,
-                          impl=cfg.kernel_impl, masked=False)
-    wo = kops.gather_rows(slab_wo.reshape(E, f * d), safe_e,
-                          impl=cfg.kernel_impl, masked=False)
-
     sdst = torch.where(ok, slot, S)                      # trash slot = drop
+    for hot, slab in ((s.hot_wi, slab_wi), (s.hot_wg, slab_wg),
+                      (s.hot_wo, slab_wo)):
+        kops.gather_rows_into(hot.view(S + 1, -1), sdst, slab.reshape(E, -1),
+                              safe_e, impl=cfg.kernel_impl)
     old = s.expert_of[slot]
     put(s.slot_of, torch.where(ok & (old >= 0), old, E), -1)
-    s.hot_wi.view(S + 1, d * f)[sdst] = wi.to(cfg.dtype)
-    s.hot_wg.view(S + 1, d * f)[sdst] = wg.to(cfg.dtype)
-    s.hot_wo.view(S + 1, f * d)[sdst] = wo.to(cfg.dtype)
     s.slot_of[torch.where(ok, e, E)] = slot
     s.expert_of[sdst] = e
     s.clock[sdst] = s.step

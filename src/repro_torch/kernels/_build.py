@@ -98,10 +98,19 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        # the row-copy plan (gather_objects.launch_plan): word_bytes,
+        # lanes, grid_x, grid_y, streaming
+        plan = [I32, I32, I32, I32, I32]
         for fn in (lib.repro_gather_rows, lib.repro_compact_pages):
-            # (device, pool, n_pool, idx, n_rows, out, row_bytes, stream)
-            fn.argtypes = [I32, P, I64, P, I64, P, I64, P]
+            # (device, pool, n_pool, idx, n_rows, out, row_bytes, plan...,
+            #  stream)
+            fn.argtypes = [I32, P, I64, P, I64, P, I64, *plan, P]
             fn.restype = I32
+        # (device, pool, n_pool, idx, n_rows, dst, n_dst, dst_idx,
+        #  row_bytes, plan..., stream)
+        lib.repro_gather_rows_into.argtypes = [I32, P, I64, P, I64, P, I64, P,
+                                               I64, *plan, P]
+        lib.repro_gather_rows_into.restype = I32
         # (device, cat, ema, alloc, out, n_pages, page_objs, decay, keep, stream)
         lib.repro_cat_decay.argtypes = [I32, P, P, P, P, I64, I32,
                                         ctypes.c_float, ctypes.c_float, P]

@@ -1,56 +1,54 @@
-// gather_rows: the hybrid plane's row gather on Hopper.
+// gather_rows and gather_rows_into: the hybrid plane's row gather on Hopper.
 //
 // Replaces the Pallas kernel repro/kernels/gather_objects.py::gather_rows
 // (one grid step per row, the row's HBM->VMEM DMA driven by a
-// scalar-prefetched index).  Computes out[r] = pool[idx[r]] for a pool
-// [N, D] and idx [R] int32, with a zero row where idx[r] < 0.  The plane
-// calls it for object ingress, for both final-read gathers and, through
-// gather_pages (a row = one whole page of P*D elements), for every page-in.
+// scalar-prefetched index).  gather_rows computes out[r] = pool[idx[r]] for
+// a pool [N, D] and idx [R] int32, with a zero row where idx[r] < 0.
+// gather_rows_into writes the same rows straight into their destination,
+// dst[dst_idx[r]] = pool[idx[r]], so a caller that used to gather into a
+// temporary and scatter it (the expert fetch, object ingress, the paging
+// page-in) moves each byte once.  Both are counted as gather_rows.
 //
-// Bound: pure data movement, about 2*R*D*itemsize bytes plus 4*R of
-// indices.  At serving sizes (R ~ 1000 rows of 128 B, or pages of 1 KiB)
-// that is a few hundred KB, so the launch and the latency of one dependent
-// load (index, then row) bound it, not the 3.35 TB/s of HBM.  The design
-// answers with a flat word index space (row_gather.cuh): every thread
-// issues one independent 16-byte load, so all rows are in flight at once
-// and a 1024-row batch fills the card in a single wave.
+// Bound: pure data movement, each needed row read once and written once
+// plus 4 B (8 B with dst_idx) of indices a row.  At serving sizes (about
+// 1,000 rows of 128 B, or 1 KiB pages) that is a few hundred KB, so the
+// launch and the latency of two dependent loads (index, then row) bound
+// it; the rows geometry of row_gather.cuh puts every row of a batch in
+// flight in one wave.
+// The expert fetch moves 8 rows of 29.36 MB, where the bytes bound it at
+// HBM's 3.35 TB/s; the tiles geometry keeps every thread of a full grid
+// with a 16-byte load in flight, with no division per word, and streams
+// the copy past L2's default caching.
 #include "row_gather.cuh"
 
-namespace {
-
-template <typename W>
-__global__ void __launch_bounds__(repro::kGatherThreads)
-gather_rows_kernel(const W* __restrict__ pool, int64_t n_pool,
-                   const int32_t* __restrict__ idx, W* __restrict__ out,
-                   int64_t n_rows, int64_t words_per_row) {
-  repro::gather_body<W>(pool, n_pool, idx, out, n_rows, words_per_row);
-}
-
-template <typename W>
-void launch(const void* pool, int64_t n_pool, const int32_t* idx, void* out,
-            int64_t n_rows, int64_t row_bytes, cudaStream_t stream) {
-  const int64_t wpr = row_bytes / (int64_t)sizeof(W);
-  gather_rows_kernel<W>
-      <<<repro::gather_blocks(n_rows * wpr), repro::kGatherThreads, 0,
-         stream>>>(static_cast<const W*>(pool), n_pool, idx,
-                   static_cast<W*>(out), n_rows, wpr);
-}
-
-}  // namespace
-
+// plan (kernels/gather_objects.py launch_plan): word_bytes, lanes, grid_x,
+// grid_y, streaming
 extern "C" int repro_gather_rows(int device, const void* pool, int64_t n_pool,
                                  const void* idx, int64_t n_rows, void* out,
-                                 int64_t row_bytes, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  const int32_t* ix = static_cast<const int32_t*>(idx);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (repro::gather_word_bytes(pool, out, row_bytes)) {
-    case 16: launch<uint4>(pool, n_pool, ix, out, n_rows, row_bytes, s); break;
-    case 4: launch<uint32_t>(pool, n_pool, ix, out, n_rows, row_bytes, s); break;
-    default: launch<uint8_t>(pool, n_pool, ix, out, n_rows, row_bytes, s); break;
-  }
-  return (int)cudaGetLastError();
+                                 int64_t row_bytes, int word_bytes, int lanes,
+                                 int grid_x, int grid_y, int streaming,
+                                 void* stream) {
+  return repro::launch_row_copy<repro::tag::gather_rows>(
+      device,
+      repro::row_copy_args(pool, n_pool, idx, n_rows, out, n_rows, nullptr,
+                           row_bytes, word_bytes),
+      word_bytes, lanes, grid_x, grid_y, streaming,
+      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_gather_rows_into(int device, const void* pool,
+                                      int64_t n_pool, const void* idx,
+                                      int64_t n_rows, void* dst,
+                                      int64_t n_dst, const void* dst_idx,
+                                      int64_t row_bytes, int word_bytes,
+                                      int lanes, int grid_x, int grid_y,
+                                      int streaming, void* stream) {
+  return repro::launch_row_copy<repro::tag::gather_rows>(
+      device,
+      repro::row_copy_args(pool, n_pool, idx, n_rows, dst, n_dst, dst_idx,
+                           row_bytes, word_bytes),
+      word_bytes, lanes, grid_x, grid_y, streaming,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* repro_error_string(int code) {

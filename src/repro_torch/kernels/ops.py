@@ -37,10 +37,13 @@ def _kernel(t: torch.Tensor, impl: str) -> bool:
 
 
 def launch_counts() -> dict:
-    """Kernel launches per kernel since the last reset, and under
-    ``paged_attention_mma`` those of paged_attention on the tensor cores."""
+    """Kernel launches per kernel since the last reset; beside them, under
+    ``paged_attention_mma`` those of paged_attention on the tensor cores
+    and under ``gather_rows_into`` those of gather_rows that wrote in
+    place."""
     counts = {k: m.launches for k, m in _KERNEL_MODULES.items()}
     counts["paged_attention_mma"] = _paged_attn_mod.launches_mma
+    counts["gather_rows_into"] = _gather_mod.launches_into
     return counts
 
 
@@ -48,6 +51,7 @@ def reset_launch_counts() -> None:
     for m in _KERNEL_MODULES.values():
         m.launches = 0
     _paged_attn_mod.launches_mma = 0
+    _gather_mod.launches_into = 0
 
 
 def gather_rows(pool, idx, *, impl="auto", masked=True):
@@ -60,6 +64,19 @@ def gather_rows(pool, idx, *, impl="auto", masked=True):
     if not masked:
         return pool[idx.clamp_min(0)]
     return ref.gather_rows_ref(pool, idx)
+
+
+def gather_rows_into(dst, dst_idx, pool, idx, *, impl="auto"):
+    """In-place gather: ``dst[dst_idx[r]] = pool[idx[r]]``, a zero row where
+    ``idx[r] < 0``; returns ``dst``.  dst [M, D] and pool [N, D] of one
+    dtype, contiguous and apart; dst_idx/idx [R] int32.  Rows with a valid
+    source have distinct destinations; rows that share one (a trash row)
+    carry the same data, so the result is that of the gather followed by
+    the scatter, bit for bit."""
+    if _kernel(pool, impl):
+        return _gather_mod.gather_rows_into(dst, dst_idx, pool, idx)
+    _gather_mod.check_into(dst, dst_idx, pool, idx)
+    return ref.gather_rows_into_ref(dst, dst_idx, pool, idx)
 
 
 def gather_pages(slab, page_ids, perm=None, *, impl="auto", masked=True):

@@ -20,6 +20,15 @@ def gather_rows_ref(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where((idx >= 0)[:, None], rows, torch.zeros_like(rows))
 
 
+def gather_rows_into_ref(dst: torch.Tensor, dst_idx: torch.Tensor,
+                         pool: torch.Tensor, idx: torch.Tensor
+                         ) -> torch.Tensor:
+    """``dst[dst_idx] = gather_rows_ref(pool, idx)``, in place; returns
+    ``dst``."""
+    dst[dst_idx.long()] = gather_rows_ref(pool, idx)
+    return dst
+
+
 def compact_pages_ref(pool: torch.Tensor, plan: torch.Tensor,
                       page_objs: int) -> torch.Tensor:
     """pool [N, D], plan [M*P] flat row ids (-1 = zero slot) -> [M, P, D]."""

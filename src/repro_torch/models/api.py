@@ -6,10 +6,12 @@
                                           (state, logits)
 
 for the decoder-only attention families (``dense``, ``moe`` with
-``atlas_experts``, ``vlm`` without a vision frontend), through the dense,
-window and sparse KV plane modes and the expert plane.  The ``ssm``,
-``hybrid`` and ``encdec`` families, a vision frontend, the dropping MoE and
-the training and prefill steps wait for ROADMAP Queue 1 item 9 and raise.
+``atlas_experts``, ``vlm``), through the dense, window and sparse KV plane
+modes and the expert plane.  A ``vlm``'s vision frontend enters only the
+forward (prefill and training) path, which the port does not have yet:
+decode never reads ``patch_proj``, as in JAX.  The ``ssm``, ``hybrid`` and
+``encdec`` families, the dropping MoE and the training and prefill steps
+wait for ROADMAP Queue 1 item 9 and raise.
 
 Where the port departs from the JAX form, and why:
 
@@ -57,8 +59,6 @@ def _unported(what: str):
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in _DECODER_ONLY:
         raise _unported(f"decode for the {cfg.family!r} family")
-    if cfg.frontend == "vision":
-        raise _unported("the vision frontend (vlm)")
 
 
 def model_defs(cfg: ArchConfig) -> dict:

@@ -111,6 +111,136 @@ def test_compact_pages_matches_pallas(f, p, d, m):
     np.testing.assert_array_equal(_np(got), _np(expect))
 
 
+# gather_rows_into: (source rows, JAX destinations) per case; a JAX
+# destination at or past M is dropped, the port's lands on trash row M
+_M = 12
+_INTO_CASES = {
+    # one masked row onto the trash row, the rest distinct destinations
+    "masked": ([5, -1, 31, 0, 7, 19], [3, _M, 0, 11, 6, 2]),
+    # rows whose destination is out of range carry the same source row
+    # (expert 0's, as the expert fetch writes its masked entries)
+    "out_of_range": ([0, 8, 0, 30, 0], [_M, 4, _M + 2, 9, _M + 9]),
+    "all_masked": ([-1, -1, -1, -1], [_M, _M + 1, _M, _M + 5]),
+    "empty": ([], []),
+    # several masked rows share the trash row
+    "shared_trash": ([-1, 2, -1, -1, 17, -1], [_M, 1, _M, _M, 10, _M + 3]),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(_INTO_CASES))
+def test_gather_rows_into_matches_jax(case, dtype):
+    """ops.gather_rows_into (the plain path on the CPU) equals the JAX
+    composition: the Pallas gather in interpret mode, then ``.at[dst].set``
+    with out-of-range destinations dropped; the port's trash row (row M,
+    which takes them) stripped before the comparison.  A trash row that
+    only masked rows reach holds zeros."""
+    src, dst = (np.asarray(x, np.int32) for x in _INTO_CASES[case])
+    pool_j, pool_t = _pair(RNG.randn(32, 128).astype(np.float32), dtype)
+    base = RNG.randn(_M, 128).astype(np.float32)
+    base_j, base_t = _pair(base, dtype)
+    rows = (gather_pallas(pool_j, jnp.asarray(src), interpret=True)
+            if src.size else jnp.zeros((0, 128), pool_j.dtype))
+    want = base_j.at[jnp.asarray(dst)].set(rows, mode="drop")
+    out = torch.cat([base_t, torch.full((1, 128), 7.0, dtype=base_t.dtype)])
+    got = ops.gather_rows_into(out, torch.from_numpy(np.minimum(dst, _M)),
+                               pool_t, torch.from_numpy(src))
+    assert got is out and out.dtype == pool_t.dtype
+    np.testing.assert_array_equal(_np(out[:_M]), _np(want))
+    to_trash = dst >= _M
+    if to_trash.any() and (src[to_trash] < 0).all():
+        assert not out[_M].any()
+    elif not to_trash.any():
+        assert bool((out[_M] == 7.0).all())
+
+
+def _coverage(plan, n_rows: int, row_bytes: int):
+    """How often the kernel's index math (row_gather.cuh) reaches each row
+    and each word offset within a row under ``plan``: blocks (x, y) of
+    ``lanes`` x ``THREADS // lanes`` threads, rows striding by grid_y runs,
+    words by grid_x chunks.  (rows [n_rows], words [row words]) counts."""
+    run = tgather.THREADS // plan.lanes
+    rows = np.zeros(n_rows, np.int64)
+    for by in range(plan.grid_y):
+        for rb in range(by * run, n_rows, plan.grid_y * run):
+            rows[rb:rb + run] += 1
+    words = np.zeros(row_bytes // plan.word_bytes, np.int64)
+    for bx in range(plan.grid_x):
+        for x in range(plan.lanes):
+            words[bx * plan.lanes + x::plan.lanes * plan.grid_x] += 1
+    return rows, words
+
+
+@pytest.mark.parametrize("rows,row_bytes,addr,want", [
+    (1024, 128, 0, ("rows", 16, 8, 1, 32, False)),      # object rows
+    (1032, 1024, 0, ("rows", 16, 64, 1, 258, False)),   # 1 KiB page rows
+    (32, 128, 0, ("rows", 16, 8, 1, 1, False)),         # compact_pages
+    (8, 29_360_128, 0, ("tiles", 16, 256, 66, 8, True)),   # expert fetch
+    (32, 16_384, 0, ("tiles", 16, 256, 4, 32, False)),  # KV page rows
+    (256, 16_384, 0, ("tiles", 16, 256, 3, 256, True)),
+    (1024, 130, 0, ("rows", 1, 256, 1, 1024, False)),   # unaligned widths
+    (1024, 132, 0, ("rows", 4, 64, 1, 256, False)),
+    (1024, 128, 2, ("rows", 1, 128, 1, 512, False)),
+    (64, 4098, 0, ("tiles", 1, 256, 9, 64, False)),
+    (16, 1_000_016, 0, ("tiles", 16, 256, 33, 16, True)),
+    (3, 4096, 0, ("rows", 16, 256, 1, 3, False)),
+    (1, 16, 0, ("rows", 16, 1, 1, 1, False)),
+    (5_000_000, 16, 0, ("rows", 16, 1, 1, 19532, True)),
+    (20_000_000, 16, 0, ("rows", 16, 1, 1, 65535, True)),   # grid_y capped
+])
+def test_gather_launch_plan(rows, row_bytes, addr, want):
+    """The geometry comes from shapes and alignment alone; every row and
+    every word of a row is reached exactly once, and the grid stays within
+    the card's limits."""
+    word = tgather.word_bytes(row_bytes, addr)
+    plan = tgather.launch_plan(rows, row_bytes, word=word)
+    assert tuple(plan) == want
+    assert plan.lanes & (plan.lanes - 1) == 0
+    assert 1 <= plan.lanes <= tgather.THREADS
+    assert 1 <= plan.grid_y <= tgather.MAX_GRID_Y and plan.grid_x >= 1
+    # a row's chunks spread over at most BLOCKS_PER_SM blocks an SM
+    assert (plan.grid_x - 1) * plan.grid_y < 132 * tgather.BLOCKS_PER_SM
+    row_hits, word_hits = _coverage(plan, rows, row_bytes)
+    assert (row_hits == 1).all() and (word_hits == 1).all()
+
+
+def test_gather_launch_plan_refuses():
+    with pytest.raises(ValueError):
+        tgather.launch_plan(4, 130, word=4)
+    with pytest.raises(ValueError):
+        tgather.launch_plan(0, 128)
+    with pytest.raises(ValueError):      # word offsets must fit 32 bits
+        tgather.launch_plan(1, 1 << 30, word=1)
+
+
+def test_gather_rows_into_refuses_bad_operands():
+    """Both dispatch paths refuse a dtype or width mismatch, overlapping
+    tensors and non-contiguous ones, and index vectors that are not int32
+    or differ in length."""
+    pool = torch.randn(8, 4)
+    dst = torch.zeros(5, 4)
+    i = torch.tensor([1, 2], dtype=torch.int32)
+    d = torch.tensor([0, 4], dtype=torch.int32)
+    ops.gather_rows_into(dst, d, pool, i)
+    bad = [(dst.to(torch.bfloat16), d, pool, i, "dtype"),
+           (torch.zeros(5, 3), d, pool, i, "row width"),
+           (pool[2:7], d, pool[:4], i, "overlap"),
+           (pool, d, pool, i, "overlap"),
+           (torch.zeros(4, 5).t(), d, pool, i, "contiguous"),
+           (dst, d.long(), pool, i, "int32"),
+           (dst, d, pool, i.long(), "int32"),
+           (dst, d[:1], pool, i, "dst_idx")]
+    big = torch.zeros(20, 4)
+    bad.append((big[:10], d, big[10:].clone(), i, None))   # apart: fine
+    for args in bad:
+        *tensors, why = args
+        if why is None:
+            ops.gather_rows_into(*tensors)
+            continue
+        with pytest.raises(ValueError, match=why):
+            ops.gather_rows_into(*tensors)
+
+
 @pytest.mark.parametrize("v,p,decay", [(4, 8, 0.5), (16, 32, 0.25),
                                        (5, 4, 0.9), (4096, 8, 0.3),
                                        (4096, 8, 0.7)])
@@ -152,6 +282,8 @@ def test_cpu_tensors_never_reach_the_cuda_library(monkeypatch):
     pool = torch.randn(16, 8)
     idx = torch.tensor([3, -1, 0], dtype=torch.int32)
     ops.gather_rows(pool, idx)
+    ops.gather_rows_into(torch.zeros(4, 8), torch.tensor(
+        [0, 3, 3], dtype=torch.int32), pool, idx)
     ops.gather_pages(pool.reshape(1, 4, 4, 8), idx)
     ops.compact_pages(pool, torch.tensor([1, -1, 2, 3], dtype=torch.int32),
                       page_objs=2)
@@ -174,6 +306,8 @@ def test_cpu_tensors_never_reach_the_cuda_library(monkeypatch):
                                page_objs=8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tgather.gather_rows(pool, idx)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tgather.gather_rows_into(torch.zeros(4, 8), idx, pool, idx)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tcompact.compact_pages(pool, idx[:2], page_objs=2)
     with pytest.raises(ValueError, match="CUDA tensor"):

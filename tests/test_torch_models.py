@@ -312,6 +312,21 @@ def test_vlm_text_decode_matches_jax():
     decode_both(jc, tc, "decode", 2, 256, 4)
 
 
+def test_vlm_vision_config_decodes_like_jax(capsys):
+    """paligemma-3b's real smoke config, vision frontend and all: decode
+    never reads ``patch_proj`` (the frontend enters only the forward
+    path), so the port decodes it as JAX's ``decode_step`` does, and the
+    launcher's ``--mode lm`` serves it."""
+    jc, tc = _pair("paligemma-3b", "f32")
+    assert jc.frontend == tc.frontend == "vision"
+    ts, tp = decode_both(jc, tc, "decode", 2, 256, 4)
+    assert "patch_proj" in tp and int(ts.lengths[0]) == 4
+    serve.main(["--mode", "lm", "--arch", "paligemma-3b", "--tokens", "2",
+                "--batch", "2", "--device", "cpu"])
+    assert "[serve:lm] arch=paligemma-3b batch=2 decoded 2 tokens" in \
+        capsys.readouterr().out
+
+
 def test_bf16_d96_decode_matches_jax():
     """A bf16 llama3-8b variant at d_model 96, where the embedding scale is
     not exact in bf16, through whole decode steps."""
@@ -355,7 +370,7 @@ def test_ref_impl_equals_auto_on_the_cpu():
 @pytest.mark.parametrize("arch,why", [
     ("xlstm-350m", "'ssm' family"), ("zamba2-1.2b", "'hybrid' family"),
     ("seamless-m4t-medium", "'encdec' family"),
-    ("paligemma-3b", "vision frontend"), ("mixtral-8x7b", "dropping MoE")])
+    ("mixtral-8x7b", "dropping MoE")])
 def test_unported_decode_paths_raise(arch, why):
     cfg = tcfgs.get_smoke(arch)
     sh = tcfgs.ShapeConfig("t", 256, 2, "decode")
