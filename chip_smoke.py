@@ -47,6 +47,31 @@ Phases (any failure exits non-zero, with no result line):
               total outage with the circuit breaker; every served row
               checked, every offered request served or shed exactly once,
               the breaker trips and closes; p99 beside the fault-free p99
+    shard     the store of 5 over 4 shards on the card (core.shardplane's
+              loop oracle through the pipelined engine, 256 requests a
+              shard): 256 ticks of mcd_cl with every row checked, every
+              shard's invariants, thresholds in lockstep; 32 ticks of the
+              serial schedule on clones == the overlap schedule, rows and
+              state; a budget of 64 (4 rounds) on uniform traffic spills
+              and serves every row; the paging and object planes sharded,
+              64 ticks each, rows checked; 50 ticks under
+              set_sync_debug_mode("error"); a 16-tick profile; at 512
+              objects the reference executor == the batched one == the
+              batched one on the CPU, bit for bit, on each plane
+    shardrobust the sharded hybrid engine, dispatch="sync", with the
+              per-shard breaker and an outage of shard 2, beside a
+              fault-free twin: only shard 2's breaker trips and it closes,
+              the healthy shards' rows and states are the twin's, every
+              served row is right, every offered request is served or
+              shed once; launches counted on the faulty engine alone
+    shardmesh the mesh path over an NCCL group of the visible cards (one
+              card: this process, world size 1, one shard; N cards: N
+              spawned ranks): access/update/advance_epoch/evacuate through
+              the group == the loop oracle (== the plain plane at one
+              shard), and jitted_sharded_decode on llama3-8b long_500k
+              shards == the loop decode; launches counted on the calls
+              through the group alone; with one card it says that the
+              exchange across cards was not measured
  9. kernels   page_scores, paged_attention (the long_500k sparse step and
               the decode_32k batch; the other shapes either path takes;
               granite-20b's and paligemma-3b's widths) and cat_update
@@ -91,6 +116,7 @@ sources beside this file; it never runs on the CPU.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -131,6 +157,15 @@ RECLAIM_OBJECTS, RECLAIM_MIN, RECLAIM_BUDGET = 65_536, 1000, 4096
 RECLAIM_MAX_TICKS = 240
 # the robust engine's runs (fig_faults' scenarios): ticks per run
 ROBUST_TICKS = 120
+# the sharded far tier ([shard], [shardrobust]): the store over 4 shards on
+# one card (R = 256 requests a shard), the serve run, the serial schedule
+# on clones, a budget of 64 ids (4 rounds), the paging and object planes;
+# the robust run's ticks and the shard its outage hits; [shardmesh]: ticks
+# and KV decode steps through the group, and a spawned rank's time limit
+SHARDS, SHARD_TICKS, SHARD_SERIAL_TICKS = 4, 256, 32
+SHARD_SPILL_TICKS, SHARD_SPILL_BUDGET, SHARD_PLANE_TICKS = 32, 64, 64
+SHARD_ROBUST_TICKS, SHARD_OUTAGE = 96, 2
+MESH_TICKS, MESH_KV_STEPS, MESH_TIMEOUT_S = 32, 8, 600
 # cat_update at the hybrid plane's CAT: 3,145,728 pages of 8 cards
 CAT_PAGES, CAT_CARDS, CAT_TOUCHES = 3_145_728, 8, 1024
 # the model decode path ([lm], [lmexpert]): 8 sequences in a 4,096-token
@@ -961,6 +996,479 @@ def phase_robust(torch, m, ops, data_t, card: str) -> dict:
         f"{base['p99']:.0f} us; same-seed replay: identical counters; "
         f"kernel launches (p20_retry) {p20['launches']} [{card}]")
     return p20["launches"]
+
+
+# --------------------------------------------------------------------------
+# the sharded far tier (core.shardplane) at the store's full size
+# --------------------------------------------------------------------------
+
+class Tally:
+    """The kernel launches of the calls made through it, and of no other:
+    ``tally(fn, *args)`` calls ``fn`` and adds the change in the counts."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.counts = dict.fromkeys(ops.launch_counts(), 0)
+
+    def __call__(self, fn, *args, **kw):
+        n0 = self.ops.launch_counts()
+        out = fn(*args, **kw)
+        for k, v in self.ops.launch_counts().items():
+            self.counts[k] += v - n0[k]
+        return out
+
+
+def shard_engine(m, plane: str, data_t, **kw):
+    """The launcher's plane over SHARDS shards through the pipelined
+    engine (the loop oracle on one card), as [serve] runs it."""
+    pcfg = m.serve.kv_plane_config(OBJECTS, 0.25, evac_garbage_threshold=-1.0)
+    kw = dict(dict(dispatch="pipelined", evac_every=64, epoch_every=16),
+              **kw)
+    return m.engine.Engine(m.engine.EngineConfig(
+        plane=plane, batch=BATCH, shards=SHARDS, **kw), pcfg, data_t,
+        device=data_t.device)
+
+
+def serve_checked(torch, eng, data_t, ids_all, ticks: range):
+    """``eng.submit`` over ``ticks`` with every served row checked on the
+    card; returns (rows that differ, wall s, host submit ms per tick)."""
+    mism = torch.zeros((), dtype=torch.int64, device=data_t.device)
+    tick_ms = []
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for t in ticks:
+        ts = time.time()
+        rows = eng.submit(ids_all[t])
+        mism += (rows != data_t[ids_all[t]]).any(dim=1).sum()
+        tick_ms.append((time.time() - ts) * 1e3)
+    eng.drain()
+    torch.cuda.synchronize()
+    return int(mism), time.time() - t0, tick_ms
+
+
+def phase_shard(torch, m, ops, data_t, ids_all, card: str):
+    """The sharded hybrid store on one card: SHARD_TICKS ticks of mcd_cl
+    through the pipelined engine, every row checked; every shard's
+    invariants; the serial schedule == the overlap schedule on clones; a
+    spilling budget; the paging and object planes sharded; the reference
+    executor == the batched one at 512 objects; no host sync; a 16-tick
+    profile.  Returns (launch counts of the serve run, device ops/tick,
+    requests/s)."""
+    sp = m.shardplane
+    t0 = time.time()
+    eng = shard_engine(m, "hybrid", data_t)
+    scfg, R = eng.scfg, BATCH // SHARDS
+    torch.cuda.synchronize()
+    s0 = eng.state[0]
+    log(f"[shard] plane: {OBJECTS} objects over {SHARDS} shards "
+        f"({scfg.shard.num_objs} objects, slab {tuple(s0.slab.shape)}, "
+        f"frames {tuple(s0.frames.shape)} a shard), {R} requests a shard, "
+        f"{scfg.rounds} round ({scfg.exchange} exchange), set up in "
+        f"{time.time() - t0:.1f}s")
+    ops.reset_launch_counts()
+    eng.latency = m.engine.LatencyTracker()
+    n_mism, wall, tick_ms = serve_checked(torch, eng, data_t, ids_all,
+                                          range(SHARD_TICKS))
+    launches = ops.launch_counts()
+    stats = {k: int(v) for k, v in sp.stats_total(eng.state)._asdict().items()}
+    lat = eng.latency.summary()
+    rps = SHARD_TICKS * BATCH / wall
+    log(f"[shard] {SHARD_TICKS} ticks x {BATCH} requests (mcd_cl) in "
+        f"{wall:.3f}s: {rps:.0f} requests/s, batch latency p50 "
+        f"{lat['p50_us']:.0f} us p99 {lat['p99_us']:.0f} us, host submit "
+        f"p50 {statistics.median(tick_ms):.2f} ms [{card}]")
+    log(f"[shard] stats (summed over shards) {stats}")
+    log(f"[shard] kernel launches {launches} "
+        f"({ {k: v / SHARD_TICKS for k, v in launches.items()} } per tick)")
+    check(n_mism == 0, f"shard: {n_mism} served rows differ from the data")
+    for k in ("page_ins", "obj_ins", "evac_pages", "epochs"):
+        check(stats[k] > 0, f"shard: {k} is 0")
+    for k in ("gather_rows", "compact_pages", "cat_decay"):
+        check(launches[k] > 0, f"shard: kernel {k} was never launched")
+    thr = [float(s.car_thr) for s in eng.state]
+    check(thr == [thr[0]] * SHARDS, f"shard: thresholds apart {thr}")
+    inv = sp.check_invariants(scfg, eng.state)
+    check(all(inv.values()), f"shard: invariants {inv}")
+    log(f"[shard] 0 of {SHARD_TICKS * BATCH} served rows differ from the "
+        f"data; every shard's invariants hold; thresholds in lockstep "
+        f"({thr[0]:.4f})")
+
+    # the serial schedule on clones: the same rows and state
+    serial = dataclasses.replace(scfg, exchange="serial")
+    so = [s.clone() for s in eng.state]
+    ss = [s.clone() for s in eng.state]
+    same = True
+    for t in range(SERVE_TICKS, SERVE_TICKS + SHARD_SERIAL_TICKS):
+        ids = ids_all[t].reshape(SHARDS, R)
+        _, ro = sp.access(scfg, so, ids)
+        _, rs = sp.access(serial, ss, ids)
+        same &= torch.equal(ro, rs) and torch.equal(
+            ro.reshape(BATCH, -1), data_t[ids_all[t]])
+        if t % 16 == 0:
+            for st_ in (so, ss):
+                sp.advance_epoch(scfg, sp.evacuate(scfg, st_))
+    check(same, "shard: the serial schedule's rows differ")
+    check(all(_states_equal(torch, m.convert, a, b) for a, b in zip(so, ss)),
+          "shard: the serial schedule's state differs")
+    del so, ss
+    log(f"[shard] serial == overlap schedule over {SHARD_SERIAL_TICKS} "
+        f"ticks on clones: rows and every field of every shard")
+
+    n_ops = profile_ticks(torch, eng, ids_all, SERVE_TICKS, 16, card, "shard")
+
+    # the plane's path makes no host sync
+    s = eng.state
+    mism = torch.zeros((), dtype=torch.int64, device=data_t.device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(SERVE_TICKS, SERVE_TICKS + NOSYNC_TICKS):
+            _, rows = sp.access(scfg, s, ids_all[t].reshape(SHARDS, R))
+            mism += (rows.reshape(BATCH, -1) != data_t[ids_all[t]]).any(
+                dim=1).sum()
+            if t % 16 == 0:
+                sp.evacuate(scfg, s)
+            if t % 8 == 0:
+                sp.advance_epoch(scfg, s)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(int(mism) == 0, "shard: rows differ under sync-debug mode")
+    log(f"[shard] {NOSYNC_TICKS} ticks of shardplane access/evacuate/"
+        f"advance_epoch under set_sync_debug_mode('error'): no host sync, "
+        f"rows correct")
+    del eng, s
+    torch.cuda.empty_cache()
+
+    # a spilling budget, then the paging and object planes sharded.  The
+    # spilling run takes uniform traffic: mcd_cl's zipf repeats its hot
+    # keys, so a source sends an owner at most ~45 distinct ids of its
+    # 256 and a budget of 64 never spills on it
+    uni = torch.from_numpy(m.np.stack(list(m.kvworkload.uniform(
+        OBJECTS, BATCH, SHARD_SPILL_TICKS, seed=SEED)))).to(data_t.device)
+    for plane, ticks, kw in (("hybrid", SHARD_SPILL_TICKS,
+                              dict(shard_budget=SHARD_SPILL_BUDGET)),
+                             ("paging", SHARD_PLANE_TICKS, {}),
+                             ("object", SHARD_PLANE_TICKS, {})):
+        e = shard_engine(m, plane, data_t, **kw)
+        n_mism, wall, _ = serve_checked(torch, e, data_t,
+                                        uni if kw else ids_all, range(ticks))
+        st = {k: int(v) for k, v in sp.stats_total(e.state)._asdict().items()}
+        tag = (f"{plane}, uniform traffic, budget {kw['shard_budget']} "
+               f"({e.scfg.rounds} rounds)" if kw else plane)
+        check(n_mism == 0, f"shard {tag}: {n_mism} served rows differ")
+        check(all(sp.check_invariants(e.scfg, e.state).values()),
+              f"shard {tag}: invariants")
+        if kw:
+            check(st["ingress_spills"] > 0, "shard: the budget never spilled")
+        check(st["page_ins"] + st["obj_ins"] > 0, f"shard {tag}: no ingress")
+        log(f"[shard] {tag}: {ticks} ticks in {wall:.3f}s "
+            f"({ticks * BATCH / wall:.0f} requests/s), every row right; "
+            f"ingress_spills {st['ingress_spills']} page_ins "
+            f"{st['page_ins']} obj_ins {st['obj_ins']} [{card}]")
+        del e
+        torch.cuda.empty_cache()
+
+    shard_small(torch, m, data_t.device)
+    return launches, n_ops, rps
+
+
+def shard_small(torch, m, dev) -> None:
+    """At 512 objects over SHARDS shards (4 frames a shard, the fewest a
+    plane may have), 24 ticks of each plane: the reference executor on the
+    card == the batched one on the card == the batched one on the CPU,
+    rows and every field.  The CPU applies duplicate scatter writes in
+    order, as JAX does; the card holds to it only where the plane orders
+    them itself (``plane.last_writes`` in the evacuation).  There the
+    reference plane itself serves some rows of other objects (ROADMAP
+    Queue 3), so rows against the data are counted and reported, not
+    required."""
+    sp = m.shardplane
+    objects, batch = 512, 32
+    pcfg = m.serve.kv_plane_config(objects, 0.25)
+    small = torch.from_numpy(m.serve.kv_data(objects, SEED))
+    off = {}
+    for plane in ("hybrid", "paging", "object"):
+        cfg = sp.make_config(pcfg, SHARDS, batch // SHARDS, plane=plane)
+        runs = {("batch", "cuda"): sp.create(cfg, small.to(dev), device=dev),
+                ("reference", "cuda"): sp.create(cfg, small.to(dev),
+                                                 device=dev),
+                ("batch", "cpu"): sp.create(cfg, small, device="cpu")}
+        off[plane] = 0
+        for t, ids in enumerate(m.kvworkload.zipf_churn(objects, batch, 24,
+                                                        seed=SEED)):
+            ids = torch.from_numpy(ids).reshape(SHARDS, -1)
+            rows = {}
+            for (mode, d), x in runs.items():
+                _, rows[mode, d] = sp.access(cfg, x, ids.to(x[0].device),
+                                             mode=mode)
+                if plane == "hybrid" and t % 6 == 5:
+                    sp.advance_epoch(cfg, sp.evacuate(
+                        cfg, x, garbage_threshold=-1.0, max_pages=4))
+            rb = rows["batch", "cuda"]
+            check(torch.equal(rb, rows["reference", "cuda"]),
+                  f"shard oracle ({plane}): rows differ at tick {t}")
+            check(torch.equal(rb.cpu(), rows["batch", "cpu"]),
+                  f"shard oracle ({plane}): the card's rows differ from the "
+                  f"CPU's at tick {t}")
+            off[plane] += int((rb.cpu() != small[ids]).any(dim=-1).sum())
+        sb = runs["batch", "cuda"]
+        for key in (("reference", "cuda"), ("batch", "cpu")):
+            check(all(_states_equal(torch, m.convert, a, b)
+                      for a, b in zip(sb, runs[key])),
+                  f"shard oracle ({plane}): the card's batched state differs "
+                  f"from the {key[0]} executor's on the {key[1]}")
+    log(f"[shard] at {objects} objects over {SHARDS} shards "
+        f"({cfg.shard.num_frames} frames a shard): batch == reference "
+        f"executor on the card == batch on the CPU, rows and every field, "
+        f"24 ticks of each plane; rows other than the data (the "
+        f"reference's four-frame fault, ROADMAP Queue 3): {off}")
+
+
+def phase_shard_robust(torch, m, ops, data_t, card: str) -> dict:
+    """The sharded hybrid engine at full size, dispatch="sync", with the
+    per-shard breaker (threshold 0.5, probes every 4 ticks, one retry) and
+    an outage of shard SHARD_OUTAGE over the middle third of
+    SHARD_ROBUST_TICKS ticks of mcd_cl (7/8 of the batch new requests),
+    beside a fault-free twin.  Only that shard's breaker trips, and it
+    closes; the healthy shards' rows (and states) are the twin's, bit for
+    bit; every served slot's row is right and every offered request is
+    served or shed exactly once.  Returns the faulty engine's launch
+    counts (the twin's are not counted)."""
+    import numpy as np
+    F = m.faults
+    steps, req = SHARD_ROBUST_TICKS, BATCH - BATCH // 8
+    window = (steps // 3 + 2, 2 * steps // 3 + 2)
+    wl = list(m.kvworkload.zipf_churn(OBJECTS, req, steps, seed=3))
+    kw = dict(dispatch="sync", epoch_every=0, max_retries=1,
+              breaker_threshold=0.5, breaker_probe_every=4,
+              watchdog_s=300.0)
+    ef = shard_engine(m, "hybrid", data_t, faults=F.Schedule(
+        seed=11, outages=(window + (SHARD_OUTAGE,),)), **kw)
+    e0 = shard_engine(m, "hybrid", data_t, faults=F.NULL, **kw)
+    dev = data_t.device
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    retire = ef._retire_one
+
+    def checked_retire():
+        e = ef._inflight[0]
+        retire()
+        sv = e.served.numpy() & (e.ids >= 0)
+        ok = torch.from_numpy(np.nonzero(sv)[0]).to(dev)
+        no = torch.from_numpy(np.nonzero(~sv)[0]).to(dev)
+        ids = torch.from_numpy(e.ids).to(dev)
+        bad.add_((e.rows[ok] != data_t[ids[ok]]).any(dim=1).sum()
+                 + e.rows[no].any(dim=1).sum())
+    ef._retire_one = checked_retire
+    O_s = ef.scfg.shard.num_objs
+    diff = torch.zeros((), dtype=torch.int64, device=dev)
+    open_seen = np.zeros((SHARDS,), bool)
+    ops.reset_launch_counts()
+    tally = Tally(ops)                  # the faulty engine's launches only
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for ids in wl:
+        rf = tally(ef.serve_batch, ids)
+        r0 = e0.serve_batch(ids)
+        healthy = torch.from_numpy(ids // O_s != SHARD_OUTAGE).to(dev)
+        diff += (rf[healthy] != r0[healthy]).any(dim=1).sum()
+        open_seen |= ef.breaker_open_shards
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    healthy_states = all(_states_equal(torch, m.convert, ef.state[k],
+                                       e0.state[k])
+                         for k in range(SHARDS) if k != SHARD_OUTAGE)
+    tally(ef.flush_retries)
+    e0.flush_retries()
+    launches = tally.counts
+    rep, rep0 = ef.run([]), e0.run([])
+    c, offered = rep["counters"], steps * req
+    log(f"[shardrobust] {steps} ticks x {req} new requests, shard "
+        f"{SHARD_OUTAGE} out over ticks {window[0]}-{window[1] - 1}, both "
+        f"engines in {wall:.3f}s; counters {c}; fetch_failures per shard "
+        f"{rep['fetch_failures_per_shard']}; served per shard "
+        f"{rep['served_per_shard']} (fault-free {rep0['served_per_shard']}); "
+        f"breakers ever open {open_seen.tolist()} [{card}]")
+    check(int(bad) == 0, f"shardrobust: {int(bad)} served rows wrong or "
+                         f"unserved rows not zero")
+    check(int(diff) == 0, f"shardrobust: {int(diff)} healthy-shard rows "
+                          f"differ from the fault-free run")
+    check(healthy_states, "shardrobust: a healthy shard's state differs "
+                          "from the fault-free run")
+    check(open_seen[SHARD_OUTAGE] and open_seen.sum() == 1,
+          f"shardrobust: breakers opened {open_seen.tolist()}")
+    check(not ef.breaker_open, "shardrobust: the breaker did not close")
+    check(c["degraded_ticks"] > 0 and c["breaker_trips"] >= 1,
+          "shardrobust: no trip or no degraded tick")
+    for r in (rep, rep0):
+        cc = r["counters"]
+        check(cc["served"] + cc["shed_requests"] == offered,
+              f"shardrobust: served {cc['served']} + shed "
+              f"{cc['shed_requests']} != offered {offered}")
+    failed = rep["fetch_failures_per_shard"]
+    check(failed[SHARD_OUTAGE] > 0 and sum(failed) == failed[SHARD_OUTAGE],
+          f"shardrobust: failures per shard {failed}")
+    for k in ("gather_rows", "compact_pages"):
+        check(launches[k] > 0, f"shardrobust: kernel {k} never launched")
+    log(f"[shardrobust] only shard {SHARD_OUTAGE}'s breaker tripped and it "
+        f"closed again; the healthy shards' rows and states equal the "
+        f"fault-free run's; every offered request served or shed once")
+    del ef, e0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_checks(torch, m, rank: int, world: int, init: str, data_t,
+                ids_all) -> dict:
+    """One rank of the far group (NCCL, one card a rank): the full-size
+    store over ``world`` shards through jitted_access/update/advance_epoch/
+    evacuate with the group against the loop oracle (and, at one shard,
+    the plain plane), then jitted_sharded_decode with the group against
+    the loop decode on llama3-8b long_500k shards.  Returns the kernel
+    launch counts of the calls through the group (the loop oracle's, the
+    plain plane's and the loop decode's are not counted)."""
+    sp, mesh, kv = m.shardplane, m.mesh, m.kvplane
+    dev = mesh.init_far(rank, world, init)
+    try:
+        g = mesh.make_far_group(world)
+        S, R = world, BATCH // world
+        pcfg = m.serve.kv_plane_config(OBJECTS, 0.25,
+                                       evac_garbage_threshold=-1.0)
+        scfg = sp.make_config(pcfg, S, R)
+        data_t, ids_all = data_t.to(dev), ids_all.to(dev)
+        so = sp.create(scfg, data_t, device=dev)
+        sm = mesh.put_far(sp.create(scfg, data_t, device=dev), g)
+        plain = m.state.create(pcfg, data_t, device=dev) if S == 1 else None
+        fns = [(sp.jitted_access(scfg, group=x), sp.jitted_update(
+            scfg, group=x), sp.jitted_advance_epoch(scfg, x),
+            sp.jitted_evacuate(scfg, group=x)) for x in (None, g)]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 7)
+        ops = m.ops
+        ops.reset_launch_counts()
+        tally = Tally(ops)              # the group's calls only
+        same = True
+        for t in range(MESH_TICKS):
+            ids = ids_all[t].reshape(S, R)
+            so, ro = fns[0][0](so, ids)
+            sm, rm = tally(fns[1][0], sm, ids)
+            same &= torch.equal(rm, ro[rank])
+            if t == 0:
+                same &= torch.equal(ro.reshape(BATCH, -1), data_t[ids_all[t]])
+            if plain is not None:
+                _, rp = m.plane.access(pcfg, plain, ids_all[t])
+                same &= torch.equal(rp, ro[0])
+            if t % 2:
+                rows = torch.rand((S, R, 32), generator=gen, device=dev)
+                fns[0][1](so, ids, rows)
+                tally(fns[1][1], sm, ids, rows)
+                if plain is not None:
+                    m.plane.update(pcfg, plain, ids_all[t], rows[0])
+            if t % 8 == 7:
+                fns[0][3](fns[0][2](so))
+                tally(fns[1][3], tally(fns[1][2], sm))
+                if plain is not None:
+                    m.plane.evacuate(pcfg, m.plane.advance_epoch(pcfg, plain))
+        check(bool(same), f"shardmesh rank {rank}: rows differ")
+        check(_states_equal(torch, m.convert, sm[rank], so[rank]),
+              f"shardmesh rank {rank}: the group's shard differs from the "
+              f"loop oracle's")
+        if plain is not None:
+            check(_states_equal(torch, m.convert, plain, so[0]),
+                  "shardmesh: one shard differs from the plain plane")
+        check(all(sp.check_invariants(scfg, sm).values()),
+              f"shardmesh rank {rank}: invariants")
+        tot = sp.stats_total(sm, g)
+        log(f"[shardmesh] rank {rank}/{world}: {MESH_TICKS} ticks of access"
+            f" (updates, epochs, evacuations between) through the group == "
+            f"the loop oracle{' == the plain plane' if plain else ''}, rows "
+            f"and every field; page_ins {int(tot.page_ins)} obj_ins "
+            f"{int(tot.obj_ins)} evac_pages {int(tot.evac_pages)}")
+        del so, sm, plain
+        torch.cuda.empty_cache()
+        # the KV plane's mesh decode: S long_500k shards of llama3-8b
+        kg = torch.Generator(device=dev)
+        kg.manual_seed(SEED + 8)
+        shards = [sparse_plane(torch, kv, kg) for _ in range(S)]
+        cfg, qs = shards[0][0], shards[0][2]
+        ko = [x[1] for x in shards]
+        km = [x[1].clone() if d == rank else None for d, x in
+              enumerate(shards)]
+        lengths = torch.full((1,), S * cfg.num_pages * cfg.page_tokens,
+                             dtype=torch.int32, device=dev)
+        dec = [kv.jitted_sharded_decode(cfg, group=x) for x in (None, g)]
+        same = True
+        for i in range(MESH_KV_STEPS):
+            oo, ko = dec[0](ko, qs[i % len(qs)], lengths)
+            om, km = tally(dec[1], km, qs[i % len(qs)], lengths)
+            same &= torch.equal(oo, om)
+        check(same, f"shardmesh rank {rank}: decode outputs differ")
+        check(_kv_states_equal(m.convert, cfg, km[rank], ko[rank]),
+              f"shardmesh rank {rank}: KV shard state differs")
+        log(f"[shardmesh] rank {rank}/{world}: {MESH_KV_STEPS} "
+            f"jitted_sharded_decode steps through the group (llama3-8b "
+            f"long_500k, {S} shard(s) of {cfg.num_pages} pages) == the loop "
+            f"decode, outputs and state")
+        torch.cuda.synchronize()
+        return tally.counts
+    finally:
+        m.dist.destroy_process_group()
+
+
+def phase_shard_mesh(torch, m, data_t, ids_all, card: str) -> dict:
+    """The mesh path over NCCL: in this process at one card (world size 1,
+    one shard), else one process a card.  Returns rank 0's launch
+    counts."""
+    n = torch.cuda.device_count()
+    init = f"tcp://localhost:{free_port()}"
+    t0 = time.time()
+    if n == 1:
+        launches = mesh_checks(torch, m, 0, 1, init, data_t, ids_all)
+        log(f"[shardmesh] the exchange across cards was not measured: one "
+            f"card here, and NCCL takes one card a rank, so the group has "
+            f"one rank and one shard ({time.time() - t0:.1f}s) [{card}]")
+        return launches
+    procs = [subprocess.Popen([sys.executable, __file__, "--mesh-rank",
+                               str(r), str(n), init],
+                              stdout=subprocess.PIPE, text=True)
+             for r in range(n)]
+    try:
+        outs = [p.communicate(timeout=MESH_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        sys.stdout.write(out)
+        check(p.returncode == 0, f"shardmesh: rank {r} exited "
+                                 f"{p.returncode}")
+    log(f"[shardmesh] {n} ranks, one card each ({time.time() - t0:.1f}s) "
+        f"[{card}]")
+    return json.loads(outs[0].strip().splitlines()[-1])
+
+
+def mesh_rank_main(rank: int, world: int, init: str) -> int:
+    """A spawned rank of [shardmesh]: its checks, then its launch counts as
+    the last line."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    m = port_modules()
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    data_t = torch.from_numpy(m.serve.kv_data(OBJECTS, SEED)).to(dev)
+    import numpy as np
+    ids_all = torch.from_numpy(np.stack(list(m.kvworkload.zipf_churn(
+        OBJECTS, BATCH, MESH_TICKS, seed=SEED)))).to(dev)
+    launches = mesh_checks(torch, m, rank, world, init, data_t, ids_all)
+    print(json.dumps(launches), flush=True)
+    return 0
 
 
 # --------------------------------------------------------------------------
@@ -2154,6 +2662,29 @@ def phase_lm_expert(torch, ops, ref, configs, api, ep, convert, card: str,
                        "into_two_step_ms": il_ms}}
 
 
+def port_modules():
+    """The port's modules the phases use, as attributes of one object."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import convert
+    from repro_torch.core import (baselines, batch, faults, kvplane, plane,
+                                  shardplane, state)
+    from repro_torch.data import kvworkload
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh, serve
+    from repro_torch.serving import engine
+
+    class M:
+        pass
+    for mod in (convert, baselines, batch, faults, kvplane, plane,
+                shardplane, state, kvworkload, ops, mesh, serve, engine):
+        setattr(M, mod.__name__.rsplit(".", 1)[-1], mod)
+    M.dist = dist
+    M.np = np
+    return M
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2164,19 +2695,13 @@ def main() -> int:
     import numpy as np
 
     from repro_torch import configs, convert
-    from repro_torch.core import (baselines, batch, expertplane, faults,
-                                  kvplane, plane, state)
-    from repro_torch.data import kvworkload
+    from repro_torch.core import expertplane, kvplane, plane
     from repro_torch.kernels import _build, gather_objects, ops, ref
     from repro_torch.launch import serve
     from repro_torch.models import api
-    from repro_torch.serving import engine
 
-    class M:  # the port's modules, for the phases
-        pass
-    for mod in (convert, baselines, batch, faults, plane, state, kvworkload,
-                serve, engine):
-        setattr(M, mod.__name__.rsplit(".", 1)[-1], mod)
+    M = port_modules()
+    batch, engine, kvworkload = M.batch, M.engine, M.kvworkload
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2320,6 +2845,10 @@ def main() -> int:
                                                        data_t, ids_all, card)
     by_path["reclaim"] = phase_reclaim(torch, M, ops, card)
     by_path["robust"] = phase_robust(torch, M, ops, data_t, card)
+    by_path["shard"], ops_per_tick["shard"], shard_rps = phase_shard(
+        torch, M, ops, data_t, ids_all, card)
+    by_path["shardrobust"] = phase_shard_robust(torch, M, ops, data_t, card)
+    by_path["shardmesh"] = phase_shard_mesh(torch, M, data_t, ids_all, card)
     per_tick = {pl: by_path[pl if pl != "hybrid" else "serve"]["gather_rows"]
                 / SERVE_TICKS for pl in ("hybrid", "paging", "object")}
     log(f"[planes] device ops per tick {ops_per_tick}; gather_rows launches "
@@ -2361,7 +2890,8 @@ def main() -> int:
     pa["launches_mma"] = kv_launches["paged_attention_mma"]
     for k in kernels:
         k.setdefault("launches_by_path", {}).update(
-            lm=lm["launches"][k["name"]], lmexpert=lmx["launches"][k["name"]])
+            lm=lm["launches"][k["name"]], lmexpert=lmx["launches"][k["name"]],
+            shardmesh=by_path["shardmesh"][k["name"]])
     gr = next(k for k in kernels if k["name"] == "gather_rows")
     gr["expert_fetch"] = dict(lmx["gather"], launches_per_step=lmx[
         "launches"]["gather_rows"] / LM_STEPS)
@@ -2382,4 +2912,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                sys.argv[4]))
     sys.exit(main())

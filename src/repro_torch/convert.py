@@ -4,8 +4,10 @@
 JAX package's field names and dtypes, ``stats`` nested as a dict.
 ``state_from_numpy`` builds a port state from such a mapping, or from any
 object with ``_asdict()`` (a ``jax.device_get`` of the JAX ``PlaneState``),
-appending the trash rows.  This is how a state carries across the two
-frameworks: the tests hand the JAX plane's state to the port this way.
+appending the trash rows.  Both take a sharded plane too: a list of shard
+states on the port's side, a leading shard axis on the JAX side.  This is
+how a state carries across the two frameworks: the tests hand the JAX
+plane's state to the port this way.
 ``kv_state_to_numpy``/``kv_state_from_numpy`` do the same for the KV
 plane's ``KVPlaneState``, a list of shard states standing for JAX's
 stacked leading shard axis; ``expert_state_*`` for the expert plane, and
@@ -28,7 +30,7 @@ def _as_dict(d) -> dict:
     return d._asdict() if hasattr(d, "_asdict") else dict(d)
 
 
-def state_to_numpy(s: st.PlaneState) -> dict:
+def _state_np(s: st.PlaneState) -> dict:
     out = {}
     for name in st.PlaneState._fields:
         if name == "stats":
@@ -42,9 +44,20 @@ def state_to_numpy(s: st.PlaneState) -> dict:
     return out
 
 
-def state_from_numpy(cfg: PlaneConfig, d, device="cuda") -> st.PlaneState:
-    dev = st.resolve_device(device)
-    d = _as_dict(d)
+def state_to_numpy(s) -> dict:
+    """A plane state (or a list of shard states, stacked on a leading
+    axis) as the JAX ``PlaneState``'s logical numpy arrays."""
+    if isinstance(s, (list, tuple)):
+        parts = [_state_np(x) for x in s]
+        out = {k: np.stack([p[k] for p in parts]) for k in parts[0]
+               if k != "stats"}
+        out["stats"] = {k: np.stack([p["stats"][k] for p in parts])
+                        for k in parts[0]["stats"]}
+        return out
+    return _state_np(s)
+
+
+def _state_one(cfg: PlaneConfig, d: dict, dev) -> st.PlaneState:
     kw = {}
     for name in st.PlaneState._fields:
         if name == "stats":
@@ -61,6 +74,22 @@ def state_from_numpy(cfg: PlaneConfig, d, device="cuda") -> st.PlaneState:
             x = torch.cat([x, torch.zeros_like(x[:1])])   # trash row
         kw[name] = x
     return st.PlaneState(**kw)
+
+
+def state_from_numpy(cfg: PlaneConfig, d, device="cuda"):
+    """A port plane state from the JAX ``PlaneState``'s fields (a mapping
+    or anything with ``_asdict()``); with a leading shard axis (``step``
+    of shape ``[S]``), a list of S shard states for the per-shard
+    ``cfg``."""
+    dev = st.resolve_device(device)
+    d = _as_dict(d)
+    if np.ndim(d["step"]) == 1:
+        stats = _as_dict(d["stats"])
+        return [_state_one(cfg, dict(
+            {k: np.asarray(v)[i] for k, v in d.items() if k != "stats"},
+            stats={k: np.asarray(v)[i] for k, v in stats.items()}), dev)
+            for i in range(np.shape(d["step"])[0])]
+    return _state_one(cfg, d, dev)
 
 
 def _kv_np(cfg: kv.KVPlaneConfig, s: kv.KVPlaneState) -> dict:

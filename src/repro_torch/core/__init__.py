@@ -7,7 +7,7 @@ from .plane import (access, update, evacuate, plan_evacuate,
                     evict_all, peek, occupancy, paging_fraction,
                     check_invariants)
 from .baselines import paging_access, object_access, object_reclaim
-from . import batch, baselines, faults, kvplane, offload, sync
+from . import batch, baselines, faults, kvplane, offload, shardplane, sync
 
 __all__ = [
     "FREE", "LOCAL", "REMOTE", "PSF_PAGING", "PSF_RUNTIME", "PlaneConfig",
@@ -16,5 +16,6 @@ __all__ = [
     "advance_epoch", "writeback_all", "evict_all",
     "peek", "occupancy", "paging_fraction", "check_invariants",
     "paging_access", "object_access", "object_reclaim",
-    "batch", "baselines", "faults", "kvplane", "offload", "sync",
+    "batch", "baselines", "faults", "kvplane", "offload", "shardplane",
+    "sync",
 ]

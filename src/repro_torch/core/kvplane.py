@@ -46,16 +46,22 @@ Where the port departs from the JAX form, and why:
   static trip count of masked updates; nothing on the batched path syncs
   with the host.
 * **Sharded decode** takes a list of per-shard states (JAX's leading
-  shard axis) and runs the shards as a Python loop on one device.
+  shard axis): ``jitted_sharded_decode`` runs the shards as a Python loop
+  on one device, or, given a far process group (``launch.mesh``), each
+  rank's own shard with an all_gather of the partials, as JAX's
+  ``shard_map`` body.
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..kernels import ops as kops
+from ..launch import mesh as far
 from . import state as st
 from .batch import majority_stride, stable_order
 from .paths import INF32, put, take
@@ -136,6 +142,11 @@ class KVPlaneState:
 
     def clone(self) -> "KVPlaneState":
         return KVPlaneState(**{k: getattr(self, k).clone()
+                               for k in self._fields})
+
+    def to(self, device) -> "KVPlaneState":
+        """This state on ``device`` (itself if it is there already)."""
+        return KVPlaneState(**{k: getattr(self, k).to(device)
                                for k in self._fields})
 
 
@@ -643,31 +654,65 @@ def attend_sparse_partial(cfg: KVPlaneConfig, s: KVPlaneState, q,
     return acc, m, l, s
 
 
+def _newest_local(cfg: KVPlaneConfig, lengths, d: int) -> torch.Tensor:
+    """Shard ``d``'s local index of the append page (-1 if another shard
+    owns it)."""
+    P, NP = cfg.page_tokens, cfg.num_pages
+    newest_global = ((lengths[0] + P - 1) // P - 1).clamp_min(0)
+    return torch.where(newest_global // NP == d, newest_global % NP,
+                       -1).to(I32)
+
+
+def _combine(acc, m, l, dtype):
+    """The flash-decoding combine of the shards' partials ``[S, B, H,
+    ...]``, reduced over the shard axis."""
+    m_star = m.amax(dim=0, keepdim=True)
+    w = torch.exp(m - m_star)
+    l_tot = (l * w).sum(dim=0)
+    acc_tot = (acc * w).sum(dim=0)
+    return (acc_tot / l_tot.clamp_min(1e-30)).to(dtype)
+
+
 def sharded_sparse_decode(cfg: KVPlaneConfig, states: list, q, lengths, *,
                           mode: str | None = None):
     """Sparse decode over plane shards (a list of states, JAX's leading
     shard axis), one shard after another on one device, with the
     flash-decoding combine.  Returns (out [B, H, Dh], states)."""
     P, NP = cfg.page_tokens, cfg.num_pages
-    npages_global = (lengths[0] + P - 1) // P
-    newest_global = (npages_global - 1).clamp_min(0)
-    accs, ms, ls = [], [], []
-    for d, s in enumerate(states):
-        newest_local = torch.where(newest_global // NP == d,
-                                   newest_global % NP, -1).to(I32)
-        acc, m, l, _ = attend_sparse_partial(cfg, s, q, d * NP * P,
-                                             lengths[0], newest_local,
-                                             mode=mode)
-        accs.append(acc)
-        ms.append(m)
-        ls.append(l)
-    acc, m, l = torch.stack(accs), torch.stack(ms), torch.stack(ls)
-    m_star = m.amax(dim=0, keepdim=True)
-    w = torch.exp(m - m_star)
-    l_tot = (l * w).sum(dim=0)
-    acc_tot = (acc * w).sum(dim=0)
-    out = acc_tot / l_tot.clamp_min(1e-30)
-    return out.to(q.dtype), states
+    parts = [attend_sparse_partial(cfg, s, q, d * NP * P, lengths[0],
+                                   _newest_local(cfg, lengths, d),
+                                   mode=mode)[:3]
+             for d, s in enumerate(states)]
+    acc, m, l = (torch.stack(x) for x in zip(*parts))
+    return _combine(acc, m, l, q.dtype), states
+
+
+def _mesh_sparse_decode(cfg: KVPlaneConfig, mode, group, states: list, q,
+                        lengths):
+    """One rank's shard of the sharded sparse decode (JAX's
+    ``_sharded_decode_body``): its partial attention, an all_gather of
+    ``acc``/``m``/``l`` in shard order and the same combine."""
+    d = dist.get_rank(group)
+    P, NP = cfg.page_tokens, cfg.num_pages
+    acc, m, l, _ = attend_sparse_partial(cfg, states[d], q, d * NP * P,
+                                         lengths[0],
+                                         _newest_local(cfg, lengths, d),
+                                         mode=mode)
+    acc, m, l = (far.gather_shards(x, group) for x in (acc, m, l))
+    return _combine(acc, m, l, q.dtype), states
+
+
+def jitted_sharded_decode(cfg: KVPlaneConfig, mode: str | None = None,
+                          group=None):
+    """Sharded sparse decode entry, ``(states, q, lengths) -> (out,
+    states)``: ``group=None`` is the loop over shard states on one device;
+    a far group (``launch.mesh``) attends each rank's own shard (the
+    states of ``launch.mesh.put_far``) and combines the partials after an
+    all_gather, as JAX's ``shard_map`` body does."""
+    mode = mode or cfg.fetch_mode
+    if group is None:
+        return partial(sharded_sparse_decode, cfg, mode=mode)
+    return partial(_mesh_sparse_decode, cfg, mode, group)
 
 
 def append_sharded(cfg: KVPlaneConfig, states: list, k_new, v_new, lengths):

@@ -125,6 +125,16 @@ def plan_evacuate(cfg: PlaneConfig, s: st.PlaneState,
     return EvacPlan(victims=order[:k], ok=vals[:k] > -1.0)
 
 
+def last_writes(idx: torch.Tensor, trash: int) -> torch.Tensor:
+    """``idx [n]`` with every write but the last to each index sent to
+    ``trash``.  JAX applies duplicate scatter writes in order, so the last
+    one wins; CUDA's ``index_put`` leaves them unordered."""
+    i = torch.arange(idx.shape[0], device=idx.device)
+    last = torch.where(idx[None, :] == idx[:, None], i[None, :],
+                       -1).amax(dim=1) == i
+    return torch.where(last, idx, trash)
+
+
 def _evacuate_page(cfg: PlaneConfig, s: st.PlaneState, v: torch.Tensor,
                    do: torch.Tensor) -> st.PlaneState:
     """Compact victim page ``v`` where ``do`` holds: hot/cold append
@@ -165,7 +175,10 @@ def _evacuate_page(cfg: PlaneConfig, s: st.PlaneState, v: torch.Tensor,
                                    page_objs=P, impl=cfg.kernel_impl)
     dest_f = s.frame_of[dest_pages.clamp_min(0)].clamp_min(0)
     merged = torch.where((plan >= 0)[..., None], assembled, s.frames[dest_f])
-    s.frames[torch.where((dest_pages >= 0) & do, dest_f, F)] = merged
+    # two destinations can share a frame when one of the pages has none
+    # (it reads as frame 0), as in a plane of 4 frames
+    s.frames[last_writes(torch.where((dest_pages >= 0) & do, dest_f, F),
+                         F)] = merged
 
     # smart pointers + occupancy + preserved profiling bits
     moved = occ & do

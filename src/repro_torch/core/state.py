@@ -135,6 +135,15 @@ class PlaneState:
                                     self.stats._asdict().items()})
         return PlaneState(**kw)
 
+    def to(self, device) -> "PlaneState":
+        """This state on ``device`` (itself if it is there already)."""
+        dev = torch.device(device)
+        kw = {k: getattr(self, k).to(dev) for k in self._fields
+              if k != "stats"}
+        kw["stats"] = PlaneStats(**{k: v.to(dev) for k, v in
+                                    self.stats._asdict().items()})
+        return PlaneState(**kw)
+
 
 PlaneState._fields = tuple(f.name for f in dataclasses.fields(PlaneState))
 
@@ -205,6 +214,28 @@ def create(cfg: PlaneConfig, initial, device="cuda") -> PlaneState:
         lru_hand=scalar(0),
         stats=PlaneStats.zeros(dev),
     )
+
+
+def create_sharded(cfg: PlaneConfig, shards: int, initial,
+                   device="cuda") -> list:
+    """The sharded plane as a list of ``shards`` per-shard states (JAX's
+    leading shard axis): shard ``s`` owns global objects ``[s*O, (s+1)*O)``
+    (``O = cfg.num_objs``, the PER-SHARD capacity) with its own slab
+    partition, frame pool, profiling state and governor threshold.
+    ``initial`` is the GLOBAL ``[shards*O, D]`` array, split contiguously;
+    each shard's slab is its own copy."""
+    O, D = cfg.num_objs, cfg.obj_dim
+    initial = torch.as_tensor(initial)
+    if tuple(initial.shape) != (shards * O, D):
+        raise ValueError(f"initial rows have shape {tuple(initial.shape)}, "
+                         f"{shards} shards hold {(shards * O, D)}")
+    return [create(cfg, initial[i * O:(i + 1) * O], device)
+            for i in range(shards)]
+
+
+def shard_slice(states: list, i: int) -> PlaneState:
+    """One shard's plane from a sharded state."""
+    return states[i]
 
 
 def bump(stats: PlaneStats, **deltas) -> PlaneStats:

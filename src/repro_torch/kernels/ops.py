@@ -139,6 +139,33 @@ def paged_attention(q, k_pages, v_pages, page_table, page_lens, *,
                                    page_lens)
 
 
+# --------------------------------------------------------------------------
+# packed payloads of the sharded exchange (core.shardplane): plain stacks
+# on the trailing axes, so one layout serves the per-shard [S, B] buffers
+# of the mesh path and the stacked [S, S, B] buffers of the loop oracle
+# --------------------------------------------------------------------------
+
+def fuse_ids_counts(ids, cnt):
+    """ids [..., B] int32 + cnt [..., B] int32 -> [..., 2, B] payload."""
+    return torch.stack([ids, cnt], dim=-2)
+
+
+def split_ids_counts(payload):
+    """Inverse of :func:`fuse_ids_counts`."""
+    return payload[..., 0, :], payload[..., 1, :]
+
+
+def fuse_rows_flags(rows, flags):
+    """rows [..., B, D] + flags [..., B] bool -> [..., B, D+1] payload; the
+    flag rides as a 0/1 column in the row dtype (exact down to bf16)."""
+    return torch.cat([rows, flags[..., None].to(rows.dtype)], dim=-1)
+
+
+def split_rows_flags(payload):
+    """Inverse of :func:`fuse_rows_flags`."""
+    return payload[..., :-1], payload[..., -1] > 0
+
+
 def lengths_to_page_lens(lengths, num_pages: int, page_tokens: int):
     """Dense layout helper: [B] total lengths -> [B, NP] rows per page."""
     starts = torch.arange(num_pages, device=lengths.device) * page_tokens

@@ -28,8 +28,24 @@ later batches' tail slots up to ``max_retries`` times or are shed, late
 arrivals are shed at admission, and a circuit breaker over an
 asynchronous health probe (another copy behind an event) serves local
 hits only while the far tier fails.  Pipelined dispatch acts on the
-breaker a tick late, as in JAX.  Not ported yet, and refused with
-``NotImplementedError``: the sharded far tier (``shards > 1``).
+breaker a tick late, as in JAX.
+
+The sharded far tier (``shards > 1``, ``core.shardplane``): the batch
+splits evenly over the source shards (``batch // shards`` requests each)
+and goes through ONE fused access a tick, in both dispatch modes (the
+exchange interleaves plan and execute per round).  Evacuation slices and
+the epoch run per shard through ``shardplane``; robust engines take the
+served channel back with the rows, and the circuit breaker keeps one
+health column a shard: ``breaker_scope="shard"`` trips and closes each
+shard on its own window, ``"global"`` all of them on the summed one, and
+either drives ``jitted_access_degmask`` with the ``[S]`` mask as data (an
+all-False mask gives the plain program's results bit for bit).  With a
+process group (``launch.mesh``, JAX's ``mesh=``) each rank holds its own
+shard and runs the same exchange over ``torch.distributed``: every rank
+is given the same global batch, serves its own row block, and ``submit``
+returns the whole batch's rows on every rank (an all_gather of the
+blocks, as JAX's host reads the global array whole); the per-shard health
+counters and the run's stats are gathered the same way when read.
 """
 from __future__ import annotations
 
@@ -45,8 +61,10 @@ import torch
 from ..core import baselines
 from ..core import batch as batch_lib
 from ..core import plane as plane_lib
+from ..core import shardplane
 from ..core import state as state_lib
 from ..core.layout import PlaneConfig
+from ..launch import mesh as mesh_lib
 
 
 @dataclasses.dataclass
@@ -180,32 +198,113 @@ _EMPTY_IDS = np.empty((0,), np.int32)
 
 
 class Engine:
-    """Continuous-batching serving engine (one device).
+    """Continuous-batching serving engine (one device, or one rank of a
+    far group).
 
     ``submit`` enqueues one batch (plan + execute) and returns its rows (a
     device tensor, complete once the batch retires); ``drain`` blocks on
     everything still in flight; ``serve_batch`` is submit + drain."""
 
     def __init__(self, cfg: EngineConfig, pcfg: PlaneConfig, initial,
-                 device="cuda"):
+                 device="cuda", group=None):
         if cfg.plane not in ("hybrid", "paging", "object"):
             raise ValueError(cfg.plane)
-        if cfg.shards > 1:
-            raise NotImplementedError("shards > 1: the sharded far tier is "
-                                      "not ported yet")
         if cfg.faults is not None:
             # the schedule rides in the plane config, as in JAX
             pcfg = dataclasses.replace(pcfg, faults=cfg.faults)
         self.cfg = cfg
         self.pcfg = pcfg
-        self.device = state_lib.resolve_device(device)
-        self.state = state_lib.create(pcfg, initial, device=self.device)
+        self.scfg = None
+        self.group = group
         self._robust = (cfg.faults is not None or cfg.deadline_us > 0
                         or cfg.max_retries > 0 or cfg.breaker_threshold > 0)
         self._breaker_on = self._robust and cfg.breaker_threshold > 0
         self.reclaim = None
+        self._epoch_on = cfg.plane == "hybrid" and (
+            cfg.epoch_every > 0 or cfg.epoch_watermark_bytes > 0)
+        if cfg.shards > 1:
+            self._init_sharded(initial, device)
+        else:
+            self.device = state_lib.resolve_device(device)
+            self.state = state_lib.create(pcfg, initial, device=self.device)
+            self._init_plain()
+        if cfg.plane == "hybrid" and cfg.evac_budget > 0:
+            slices = -(-16 // cfg.evac_budget)          # ceil(16/budget)
+            self._evac_slice_period = max(1, cfg.evac_every // slices)
+            self._evac_round = 0        # last round whose access-clear ran
+        self._probe = None              # in-flight traffic watermark read
+        self._hprobe = None             # in-flight health probe read
+        self._hlast = np.zeros((2, cfg.shards), np.float64)
+        self.shard_fail_frac = np.zeros((cfg.shards,), np.float64)
+        self.breaker_open_shards = np.zeros((cfg.shards,), bool)
+        self.served_per_shard = np.zeros((cfg.shards,), np.int64)
+        self._retryq: deque = deque()   # (obj_id, t0, attempt)
+        self.counters = {"served": 0, "fetch_retries": 0, "shed_requests": 0,
+                         "deadline_misses": 0, "degraded_ticks": 0,
+                         "breaker_trips": 0}
+        self.latency = LatencyTracker()
+        self.ticks = 0
+        self._inflight: deque[_Inflight] = deque()      # oldest-first
+        # the counters start at zero after the warm-up, as in JAX
+        for s in self._shards():
+            s.stats = state_lib.PlaneStats.zeros(self.device)
+            s.epoch_page_ins = torch.zeros_like(s.epoch_page_ins)
+            s.epoch_obj_ins = torch.zeros_like(s.epoch_obj_ins)
+
+    def _init_sharded(self, initial, device):
+        """The sharded far tier: per-shard states (this rank's alone under
+        a group) and the shardplane entry points.  The warm-up runs one
+        all-zeros access and, on the hybrid plane, one evacuation, as the
+        JAX engine does; the entries whose warm-up result JAX discards (the
+        degraded-mask access, the evacuation slices, the epoch) change the
+        state here and are not warmed."""
+        cfg, pcfg = self.cfg, self.pcfg
+        if cfg.batch % cfg.shards:
+            raise ValueError(f"batch={cfg.batch} must split evenly over "
+                             f"{cfg.shards} shards")
+        S = cfg.shards
+        self.scfg = scfg = shardplane.make_config(
+            pcfg, S, cfg.batch // S, cfg.shard_budget or None,
+            plane=cfg.plane, exchange=cfg.shard_exchange)
+        g = self.group
+        self.device = (state_lib.resolve_device(device) if g is None
+                       else mesh_lib.far_device(g))
+        self.state = shardplane.create(scfg, initial, device=self.device)
+        if g is not None:
+            self.state = mesh_lib.put_far(self.state, g)
+        if cfg.plane == "object":
+            # one reclaim loop per shard state (each keeps its own bound)
+            self.reclaim = [baselines.ObjectReclaim() for _ in range(S)]
+        self._access = shardplane.jitted_access(
+            scfg, cfg.mode, g, with_served=self._robust,
+            reclaim=self.reclaim)
+        self._access_degmask = None
+        if self._breaker_on:
+            self._access_degmask = shardplane.jitted_access_degmask(
+                scfg, cfg.mode, g, with_served=True, reclaim=self.reclaim)
+        if cfg.plane == "hybrid":
+            self._evac = shardplane.jitted_evacuate(scfg, group=g)
+            self._evac_slice, self._evac_slice_clear = (
+                shardplane.jitted_evacuate(
+                    scfg, max_pages=cfg.evac_budget, clear_access=c,
+                    group=g) for c in (False, True))
+            self._epoch = shardplane.jitted_advance_epoch(scfg, g)
+        warm = torch.zeros((S, cfg.batch // S), dtype=torch.int32,
+                           device=self.device)
+        self._access(self.state, warm)
+        if cfg.plane == "hybrid":
+            self._evac(self.state)
+
+    def _init_plain(self):
+        cfg, pcfg = self.cfg, self.pcfg
         if cfg.plane == "hybrid":
             self._plan_kw, self._exec = {}, batch_lib.execute_access
+            self._evac = functools.partial(plane_lib.evacuate, pcfg)
+            self._evac_slice, self._evac_slice_clear = (
+                functools.partial(plane_lib.evacuate, pcfg,
+                                  max_pages=cfg.evac_budget, clear_access=c)
+                for c in (False, True))
+            self._epoch = functools.partial(plane_lib.advance_epoch, pcfg)
         elif cfg.plane == "paging":
             self._plan_kw = dict(split_by_psf=False)
             self._exec = batch_lib.execute_paging_access
@@ -216,41 +315,24 @@ class Engine:
             self._plan_kw = dict(all_runtime=True)
             self._exec = functools.partial(
                 batch_lib.execute_object_access, reclaim=self.reclaim)
-        self._epoch_on = cfg.plane == "hybrid" and (
-            cfg.epoch_every > 0 or cfg.epoch_watermark_bytes > 0)
-        if cfg.plane == "hybrid" and cfg.evac_budget > 0:
-            slices = -(-16 // cfg.evac_budget)          # ceil(16/budget)
-            self._evac_slice_period = max(1, cfg.evac_every // slices)
-            self._evac_round = 0        # last round whose access-clear ran
-        self._probe = None              # in-flight traffic watermark read
-        self._hprobe = None             # in-flight health probe read
-        self._hlast = np.zeros((2, cfg.shards), np.float64)
-        self.shard_fail_frac = np.zeros((cfg.shards,), np.float64)
-        self.breaker_open_shards = np.zeros((cfg.shards,), bool)
-        self._retryq: deque = deque()   # (obj_id, t0, attempt)
-        self.counters = {"served": 0, "fetch_retries": 0, "shed_requests": 0,
-                         "deadline_misses": 0, "degraded_ticks": 0,
-                         "breaker_trips": 0}
-        self.latency = LatencyTracker()
-        self.ticks = 0
-        self._inflight: deque[_Inflight] = deque()      # oldest-first
         # the JAX engine warms its compiled paths with one all-zeros batch
         # and, on the hybrid plane, one foreground evacuation; both change
         # the state, so the port runs them too (and the first call builds
         # the kernels).  The degraded plan is warmed and discarded, as in
-        # JAX: a plan reads the state and never writes it.  Then the
-        # counters are zeroed exactly as the JAX engine does.
+        # JAX: a plan reads the state and never writes it.
         warm = torch.zeros((cfg.batch,), dtype=torch.int32,
                            device=self.device)
         self._exec(pcfg, self.state, warm, self._plan(warm), mode=cfg.mode)
         if cfg.plane == "hybrid":
-            plane_lib.evacuate(pcfg, self.state)
+            self._evac(self.state)
         if self._breaker_on:
             self._plan(warm, degraded=True)
-        s = self.state
-        s.stats = state_lib.PlaneStats.zeros(self.device)
-        s.epoch_page_ins = torch.zeros_like(s.epoch_page_ins)
-        s.epoch_obj_ins = torch.zeros_like(s.epoch_obj_ins)
+
+    def _shards(self) -> list:
+        """The plane states this process holds."""
+        if self.scfg is None:
+            return [self.state]
+        return [s for s in self.state if s is not None]
 
     def _plan(self, ids: torch.Tensor, degraded: bool = False):
         return batch_lib.plan_access(self.pcfg, self.state, ids,
@@ -258,8 +340,27 @@ class Engine:
 
     @property
     def breaker_open(self) -> bool:
-        """True if the (single shard's) breaker is open."""
+        """True if ANY shard's breaker is open."""
         return bool(self.breaker_open_shards.any())
+
+    def _sharded_access(self, ids: torch.Tensor, dmask=None):
+        """One fused sharded access of the padded ``[batch]`` ids; returns
+        ``(rows [batch, D], served [batch] or None)``, whole on every rank
+        under a group."""
+        cfg = self.cfg
+        ids = ids.reshape(cfg.shards, cfg.batch // cfg.shards)
+        if dmask is not None and self._access_degmask is not None:
+            out = self._access_degmask(self.state, ids, torch.from_numpy(
+                dmask).to(self.device))
+        else:
+            out = self._access(self.state, ids)
+        rows, sv = out[1], (out[2] if self._robust else None)
+        if self.group is not None:
+            rows = mesh_lib.gather_shards(rows, self.group)
+            if sv is not None:
+                sv = mesh_lib.gather_shards(sv, self.group)
+        return (rows.reshape(cfg.batch, -1),
+                None if sv is None else sv.reshape(cfg.batch))
 
     # -- pipelined dispatch -------------------------------------------------
 
@@ -303,9 +404,12 @@ class Engine:
     def _dispatch(self, obj_ids, t_sched):
         ids = self._ids(obj_ids)
         n = len(obj_ids)
-        plan = self._plan(ids)
-        _, rows_full = self._exec(self.pcfg, self.state, ids, plan,
-                                  mode=self.cfg.mode)
+        if self.scfg is not None:
+            rows_full, _ = self._sharded_access(ids)
+        else:
+            plan = self._plan(ids)
+            _, rows_full = self._exec(self.pcfg, self.state, ids, plan,
+                                      mode=self.cfg.mode)
         self._inflight.append(_Inflight(rows_full, _Done(self.device),
                                         t_sched, n))
         return rows_full[:n] if n < self.cfg.batch else rows_full
@@ -358,17 +462,22 @@ class Engine:
             slow = sched.slow_us(tick)
             if slow > 0.0:
                 time.sleep(slow * 1e-6)
-        # an open breaker serves local hits only, except on probe ticks
-        degraded = False
+        # per-shard degraded mask: tripped shards serve local hits only,
+        # except on probe ticks; healthy shards always run the full path
+        dmask = np.zeros((cfg.shards,), bool)
         if (self._breaker_on and self.breaker_open
                 and tick % cfg.breaker_probe_every != 0):
-            degraded = True
-            self.counters["degraded_ticks"] += 1
+            dmask = self.breaker_open_shards.copy()
+            self.counters["degraded_ticks"] += int(dmask.sum())
         ids = self._ids(full)
-        plan = self._plan(ids, degraded=degraded)
-        _, rows_full = self._exec(self.pcfg, self.state, ids, plan,
-                                  mode=cfg.mode)
-        served = _to_host(plan.served)
+        if self.scfg is not None:
+            rows_full, served = self._sharded_access(ids, dmask)
+        else:
+            plan = self._plan(ids, degraded=bool(dmask[0]))
+            _, rows_full = self._exec(self.pcfg, self.state, ids, plan,
+                                      mode=cfg.mode)
+            served = plan.served
+        served = _to_host(served)
         self._inflight.append(_Inflight(rows_full, _Done(self.device),
                                         t_sched, n, served, full, t0s, att))
         if self._breaker_on:
@@ -380,8 +489,8 @@ class Engine:
 
     def _maintenance(self):
         """Per-tick background work on the hybrid plane (evacuation
-        slices, epoch governor)."""
-        cfg, pcfg, s = self.cfg, self.pcfg, self.state
+        slices, epoch governor), one shard after another when sharded."""
+        cfg, s = self.cfg, self.state
         if cfg.plane != "hybrid":
             return
         if cfg.evac_budget > 0:
@@ -392,21 +501,27 @@ class Engine:
                 clear = round_id > self._evac_round
                 if clear:
                     self._evac_round = round_id
-                plane_lib.evacuate(pcfg, s, max_pages=cfg.evac_budget,
-                                   clear_access=clear)
+                (self._evac_slice_clear if clear else self._evac_slice)(s)
         elif self.ticks % cfg.evac_every == 0:
-            plane_lib.evacuate(pcfg, s)
+            self._evac(s)
         if self._epoch_on and self._epoch_due():
-            plane_lib.advance_epoch(pcfg, s)
+            self._epoch(s)
             self._probe = None          # watermark restarts from the epoch
 
+    def _per_shard(self, fn) -> torch.Tensor:
+        """``[S, ...]``: ``fn`` of each shard's state in shard order
+        (gathered from every rank under a group)."""
+        if self.scfg is None:
+            return fn(self.state)[None]
+        return shardplane.stack_shards(self.state, fn, self.group)
+
     def _traffic(self) -> torch.Tensor:
-        """Bytes moved (paging + object ingress) since the last epoch."""
-        s, pcfg = self.state, self.pcfg
-        return ((s.stats.page_ins - s.epoch_page_ins).to(torch.float32)
-                * float(pcfg.page_bytes)
-                + (s.stats.obj_ins - s.epoch_obj_ins).to(torch.float32)
-                * float(pcfg.row_bytes))
+        """Bytes moved (paging + object ingress) since the last epoch,
+        summed over the shards in shard order."""
+        pb, rb = float(self.pcfg.page_bytes), float(self.pcfg.row_bytes)
+        return shardplane.shard_sum(self._per_shard(lambda s: (
+            (s.stats.page_ins - s.epoch_page_ins).to(torch.float32) * pb
+            + (s.stats.obj_ins - s.epoch_obj_ins).to(torch.float32) * rb)))
 
     def _epoch_due(self) -> bool:
         """The tick period is the fallback; the byte watermark fires once an
@@ -428,15 +543,15 @@ class Engine:
         return False
 
     def _health(self):
-        """Cumulative (failed, attempted) remote fetches, ``[2, 1]`` f32,
-        copied to the host behind an event.  Attempts are successful
-        ingress plus failures, so a window's fraction measures its probe
-        ticks' health."""
-        st = self.state.stats
-        h = torch.stack([st.fetch_failures,
-                         st.page_ins + st.obj_ins + st.fetch_failures]
-                        ).to(torch.float32).reshape(2, 1)
-        return _to_host(h), _Done(self.device)
+        """Cumulative (failed, attempted) remote fetches per shard, ``[2,
+        S]`` f32, copied to the host behind an event.  Attempts are
+        successful ingress plus failures, so a window's fraction measures
+        its probe ticks' health."""
+        h = self._per_shard(lambda s: torch.stack([
+            s.stats.fetch_failures,
+            s.stats.page_ins + s.stats.obj_ins + s.stats.fetch_failures]))
+        return _to_host(h.to(torch.float32).T.contiguous()), _Done(
+            self.device)
 
     def _breaker_step(self):
         """Async circuit-breaker update, the same non-blocking shape as
@@ -513,6 +628,10 @@ class Engine:
             lat = (now - e.t0s[ok]) * 1e6
             self.latency.record_us(lat)
             self.counters["served"] += int(ok.sum())
+            if self.scfg is not None:
+                # serves by owner shard (healthy-shard goodput)
+                np.add.at(self.served_per_shard,
+                          e.ids[ok] // self.scfg.shard.num_objs, 1)
             if cfg.deadline_us > 0:
                 self.counters["deadline_misses"] += int(
                     (lat > cfg.deadline_us).sum())
@@ -582,12 +701,25 @@ class Engine:
         if self._robust:
             self.flush_retries()
         wall = max(time.time() - t_run0, 1e-9)
-        stats = {k: int(v) for k, v in self.state.stats._asdict().items()}
+        if self.scfg is not None:
+            raw = shardplane.stats_total(self.state, self.group)
+            pf = shardplane.paging_fraction(self.scfg, self.state,
+                                            self.group)
+        else:
+            raw = self.state.stats
+            pf = plane_lib.paging_fraction(self.pcfg, self.state)
+        stats = {k: int(v) for k, v in raw._asdict().items()}
         served = self.counters["served"]
         finished = served + self.counters["shed_requests"]
-        return {"latency": self.latency.summary(), "stats": stats,
-                "paging_fraction": float(
-                    plane_lib.paging_fraction(self.pcfg, self.state)),
-                "counters": dict(self.counters),
-                "goodput_rps": served / wall,
-                "throughput_rps": finished / wall}
+        report = {"latency": self.latency.summary(), "stats": stats,
+                  "paging_fraction": float(pf),
+                  "counters": dict(self.counters),
+                  "goodput_rps": served / wall,
+                  "throughput_rps": finished / wall}
+        if self.scfg is not None:
+            # failures by the shard that performed the fetch (or the write)
+            for k in ("fetch_failures", "egress_failures"):
+                report[f"{k}_per_shard"] = self._per_shard(
+                    lambda s: getattr(s.stats, k)).tolist()
+            report["served_per_shard"] = self.served_per_shard.tolist()
+        return report

@@ -105,13 +105,6 @@ def test_short_batches_pad_and_run_reports():
     assert rep["latency"]["n"] == 163
 
 
-@pytest.mark.parametrize("bad", [dict(shards=2)])
-def test_unported_engine_paths_raise(bad):
-    with pytest.raises(NotImplementedError):
-        Engine(EngineConfig(batch=16, **bad), PlaneConfig(**PLANE), DATA,
-               device="cpu")
-
-
 def test_launcher_recipe_and_cpu_run(capsys):
     """``kv_plane_config`` is the JAX launcher's recipe
     (``repro.launch.serve.serve_kv``), and the launcher serves on the CPU

@@ -49,7 +49,8 @@ def test_port_package_is_complete():
                 "data/kvworkload.py", "serving/engine.py", "launch/serve.py",
                 "core/expertplane.py", "models/common.py",
                 "models/attention.py", "models/mlp.py", "models/lm.py",
-                "models/api.py", "configs/__init__.py"):
+                "models/api.py", "configs/__init__.py",
+                "core/shardplane.py", "launch/mesh.py"):
         assert (port / mod).exists(), mod
         assert (jaxpkg / mod).exists(), mod
     for src in ("gather_rows.cu", "compact_pages.cu", "cat_decay.cu",

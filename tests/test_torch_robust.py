@@ -264,9 +264,14 @@ def test_watchdog_raises_instead_of_hanging():
 
 
 def test_only_sharded_engine_is_refused():
-    with pytest.raises(NotImplementedError):
-        Engine(EngineConfig(batch=16, shards=2, faults=tfaults.NULL),
-               PlaneConfig(**PLANE), DATA, device="cpu")
+    """No robust engine is refused any more.  The name is the one this
+    test had while the sharded engine was the last refused; since the
+    sharded far tier was ported, the sharded one (shards=2) serves, and so
+    does the object plane's."""
+    eng = Engine(EngineConfig(batch=16, shards=2, faults=tfaults.NULL),
+                 PlaneConfig(**PLANE), DATA, device="cpu")
+    np.testing.assert_array_equal(eng.serve_batch(np.arange(5)).numpy(),
+                                  DATA[:5])
     eng = Engine(EngineConfig(plane="object", batch=16, max_retries=1,
                               faults=tfaults.NULL), PlaneConfig(**PLANE),
                  torch.from_numpy(DATA), device="cpu")
