@@ -108,7 +108,28 @@ Phases (any failure exits non-zero, with no result line):
               against index_select, gather_rows_into
               there against its plain version, the whole fetch's device
               time
-Every paged_attention launch of 11 to 14 is on the tensor cores.
+15. lmmoe    mixtral-8x7b at full width, 16 of its 32 layers (the depth cut:
+              32 layers of bf16 weights take ~93 GB), through the dropping
+              MoE: as 13 (16 paged_attention launches a step), each
+              sequence's logits against the plain path unless its routing
+              parted at a near-tie (bf16 router logits tie exactly often);
+              then decode_long through the window plane (a ring of 64
+              pages), one sequence from 4,088 tokens across the wrap
+16. lmssm     xlstm-350m at full width and depth, batch 128 (6.48 GB of
+              recurrent state), no kernel on the path: 16 timed steps, then
+              2 sequences 4 more steps on the card and on the CPU from the
+              same weights and state, in f32 (within 1e-4) and in bf16
+              (the card no further from the f32 answer than twice the
+              CPU's bf16); profile, no host sync
+17. lmhybrid  zamba2-1.2b at full width and depth: decode as 13 (6
+              paged_attention launches a step, G = 1, head_dim 64), then
+              long_500k, one sequence from 524,224 tokens through 6 sparse
+              planes filled as in 11 (6 page_scores and 12 gather_rows a
+              step; the LM sparse step attends with plain code, as in JAX);
+              page_scores at zamba2's summaries
+18. lmencdec  seamless-m4t-medium at full width, a seeded encoder memory of
+              1,024 positions: as 13 (12 launches a step, pages split)
+Every paged_attention launch of 11 to 18 is on the tensor cores.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA GPU and the repository's
@@ -180,8 +201,27 @@ LM_STEPS, LM_CHECKED, LM_PROFILE, LM_NOSYNC = 32, 8, 4, 8
 # limit), and 32 layers carry it to the logits
 LM_LOGIT_TOL = 5e-2
 # a routed token whose k-th and (k+1)-th router probabilities lie closer
-# than this (relative) may change experts between the two paths
-ROUTE_TIE = 1e-3
+# than this (relative) may change experts between the two paths: one
+# attention layer before the router (kimi-k2's one layer), or the
+# attention kernel's own limit (2e-2 of its largest output) carried into
+# the router of a deep dropping MoE (mixtral)
+ROUTE_TIE, MOE_ROUTE_TIE = 1e-3, 2e-2
+# the rest of model decode ([lmmoe], [lmssm], [lmhybrid], [lmencdec]):
+# timed greedy steps, steps checked against the plain path (or, in [lmssm],
+# the CPU), steps under set_sync_debug_mode("error"); mixtral's depth cut;
+# its window run (timed steps from 4,088 tokens, then checked steps across
+# the wrap at 4,096); xlstm's batch (decode_32k's) and its CPU check;
+# zamba2's long_500k start (the last page of 8,192); seamless's encoder
+# memory length
+REST_STEPS, REST_CHECKED, REST_NOSYNC, MOE_CHECKED = 16, 4, 4, 8
+MOE_LAYERS = 16
+WINDOW_FROM, WINDOW_TIMED, WINDOW_CHECKED = 4088, 4, 8
+SSM_BATCH, SSM_CPU_SEQS, SSM_CPU_STEPS = 128, 2, 4
+# [lmssm]'s f32 logits on the card against the CPU's, relative to the
+# largest (the CPU tests' f32 tolerance)
+SSM_F32_TOL = 1e-4
+LONG_SEQ, LONG_FROM = 524_288, 524_224
+ENC_LEN = 1024
 
 
 def log(msg: str) -> None:
@@ -1487,6 +1527,29 @@ def kv_record(name, source, replaces, ms, plain_ms, lib_ms, err, bnd):
                 bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms)
 
 
+def scores_record(torch, ops, ref, q, kmax, kmin, rate, card, tag) -> dict:
+    """page_scores at a plane's summaries against its plain version."""
+    got = ops.page_scores(q, kmax, kmin)
+    want = ref.page_scores_ref(q, kmax, kmin)
+    err = float((got - want).abs().max())
+    tol = 1e-5 * float(want.abs().max())
+    check(err <= tol, f"[{tag}] page_scores: max abs err {err} > {tol}")
+    ms = device_ms(torch, lambda: ops.page_scores(q, kmax, kmin), n=20,
+                   rounds=3)
+    plain_ms = device_ms(torch, lambda: ref.page_scores_ref(q, kmax, kmin),
+                         n=10, rounds=3)
+    B, H, Dh = q.shape
+    KVH, NP, _ = kmax.shape
+    nb = 2 * KVH * NP * Dh * 4 + B * H * Dh * 2 + B * KVH * NP * 4
+    bnd = bound(nb, 4 * B * H * NP * Dh, rate, PEAK_F32)
+    log(f"[{tag}] page_scores {list(q.shape)} bf16 x {[KVH, NP, Dh]} f32 "
+        f"(G={H // KVH}, Dh={Dh}): max abs err {err:.3g} (tolerance "
+        f"{tol:.3g}); {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, "
+        f"library none, bound {bnd[0] * 1e3:.2f} us by {bnd[1]}) [{card}]")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "max_abs_err": err}
+
+
 def used_borderline(torch, q, kf, vf, table, lens):
     """[B, NP, P] bool: rows whose weight is within 1e-5*mass of the card
     signal's threshold (w*P = page mass) for some query head, computed as
@@ -1580,25 +1643,13 @@ def phase_kv_kernels(torch, ops, ref, card: str, rate: float) -> list:
     NP = SPARSE_PAGES
     kmax = torch.randn((KVH, NP, Dh), generator=g, device=dev)
     kmin = kmax - torch.rand((KVH, NP, Dh), generator=g, device=dev)
-    got = ops.page_scores(qs[0], kmax, kmin)
-    want = ref.page_scores_ref(qs[0], kmax, kmin)
-    err = float((got - want).abs().max())
-    tol = 1e-5 * float(want.abs().max())
-    check(err <= tol, f"page_scores: max abs err {err} > {tol}")
-    pick = cyc(qs)
-    ms = device_ms(torch, lambda: ops.page_scores(pick(), kmax, kmin))
-    plain_ms = device_ms(torch, lambda: ref.page_scores_ref(pick(), kmax,
-                                                            kmin), n=10)
-    nbytes = 2 * KVH * NP * Dh * 4 + H * Dh * 2 + KVH * NP * 4
-    bnd = bound(nbytes, 4 * G * KVH * NP * Dh, rate, PEAK_F32)
-    log(f"[kernel] page_scores {list(qs[0].shape)} bf16 x {[KVH, NP, Dh]} f32: max "
-        f"abs err {err:.3g} (tolerance {tol:.3g}); {ms * 1e3:.2f} us (plain "
-        f"{plain_ms * 1e3:.2f} us, library none, bound {bnd[0] * 1e3:.2f} us "
-        f"by {bnd[1]}) [{card}]")
+    r = scores_record(torch, ops, ref, qs[0], kmax, kmin, rate, card,
+                      "kernel")
     out.append(kv_record("page_scores",
                          "src/repro_torch/kernels/csrc/page_scores.cu",
-                         "src/repro/kernels/topk_pages.py:36", ms, plain_ms,
-                         None, err, bnd))
+                         "src/repro/kernels/topk_pages.py:36", r["ms"],
+                         r["plain_ms"], None, r["max_abs_err"],
+                         (r["bound_ms"], r["bound_by"])))
     del kmax, kmin
 
     # ---- paged_attention, sparse step: 64 selected pages of 96 frames -----
@@ -1921,8 +1972,22 @@ def sparse_plane(torch, tkv, g):
                             sparse_topk=SPARSE_TOPK,
                             fetch_budget=SPARSE_FETCH)
     s = tkv.init(cfg, dev)
+    u = fill_sparse_slab(torch, cfg, s, g)
+    NP, P = cfg.num_pages, cfg.page_tokens
+    qs = [(torch.randn((1, LLAMA_HEADS, cfg.head_dim), generator=g,
+                       device=dev) + 4.0 * u).to(cfg.dtype)
+          for _ in range(8)]
+    lengths = torch.full((1,), NP * P, dtype=torch.int32, device=dev)
+    return cfg, s, qs, lengths
+
+
+def fill_sparse_slab(torch, cfg, s, g):
+    """A sparse plane's slab from ``g``: flat pages (keys 0.1 * N(0, 1),
+    values N(0, 1)) and, on a quarter of the pages, one magnet row along a
+    shared direction u (returned); the page summaries to match."""
     KVH, NP, P, Dh = cfg.kv_heads, cfg.num_pages, cfg.page_tokens, \
         cfg.head_dim
+    dev = g.device
     u = torch.ones((Dh,), device=dev) / Dh ** 0.5
     for h in range(KVH):
         s.k_slab[h].normal_(generator=g).mul_(0.1)
@@ -1930,12 +1995,10 @@ def sparse_plane(torch, tkv, g):
     mag = torch.randperm(NP - 1, generator=g, device=dev)[:NP // 4]
     rows = torch.randint(0, P, (mag.shape[0],), generator=g, device=dev)
     s.k_slab[:, mag, rows] = (16.0 * u).to(cfg.dtype)
-    s.kmax.copy_(s.k_slab.amax(dim=2).float())
-    s.kmin.copy_(s.k_slab.amin(dim=2).float())
-    qs = [(torch.randn((1, LLAMA_HEADS, Dh), generator=g, device=dev)
-           + 4.0 * u).to(cfg.dtype) for _ in range(8)]
-    lengths = torch.full((1,), NP * P, dtype=torch.int32, device=dev)
-    return cfg, s, qs, lengths
+    for h in range(KVH):       # one head at a time: no f32 copy of the slab
+        s.kmax[h].copy_(s.k_slab[h].amax(dim=1).float())
+        s.kmin[h].copy_(s.k_slab[h].amin(dim=1).float())
+    return u
 
 
 def check_frames_hold_slab(torch, cfg, s) -> tuple[int, int]:
@@ -2186,10 +2249,21 @@ def lm_configs(configs):
             configs.get_config("kimi-k2-1t-a32b").scaled(n_layers=1))
 
 
-def fill_kv_prefix(torch, state, g, prefix: int) -> None:
-    """Every layer's frames from ``g`` (seeded K/V, as [kvdense] fills its
-    plane) and ``prefix`` tokens already in context for each sequence."""
+def kv_planes(state) -> list:
+    """Every KV plane state of a serve state: one a layer, one a shared
+    attention application (zamba2's ``attn_kv``), every shard of a sparse
+    layer."""
+    out = []
     for kv in state.kv:
+        kv = kv["attn_kv"] if isinstance(kv, dict) else kv
+        out += kv if isinstance(kv, list) else [kv]
+    return out
+
+
+def fill_kv_prefix(torch, state, g, prefix: int) -> None:
+    """Every plane's frames from ``g`` (seeded K/V, as [kvdense] fills its
+    plane) and ``prefix`` tokens already in context for each sequence."""
+    for kv in kv_planes(state):
         for h in range(kv.k_frames.shape[0]):
             kv.k_frames[h].normal_(generator=g)
             kv.v_frames[h].normal_(generator=g)
@@ -2225,79 +2299,112 @@ def greedy_run(torch, step, params, state, tok, steps: int):
 
 
 class routing_log:
-    """Within the block, every expert plane call records each token's
-    top-k expert set (sorted) and the relative gap between its k-th and
-    (k+1)-th router probability (how far the top-k decision is from a
-    tie)."""
+    """Within the block, every expert plane call and every dropping MoE
+    router call (``mlp.route``, when given: the experts the MoE chose, from
+    probabilities that bf16 router logits often tie exactly) records each
+    token's top-k expert set (sorted) and the relative gap between its
+    k-th and (k+1)-th router probability (how far the top-k decision is
+    from a tie)."""
 
-    def __init__(self, torch, ep):
-        self.torch, self.ep, self.calls = torch, ep, []
+    def __init__(self, torch, ep, mlp=None):
+        self.torch, self.ep, self.mlp, self.calls = torch, ep, mlp, []
+
+    def _log(self, p, k, chosen=None):
+        """``chosen``: the experts the call took ([rows, k]); else the
+        top-k of ``p``."""
+        v, i = p.sort(dim=-1, descending=True, stable=True)
+        if chosen is None:
+            chosen = i[:, :k]
+        self.calls.append((chosen.sort(dim=-1).values,
+                           (v[:, k - 1] - v[:, k]) / v[:, k - 1]))
 
     def __enter__(self):
         real = self.real = self.ep.moe_decode
         torch = self.torch
 
         def spy(cfg, s, router, x, *a, **kw):
-            p = torch.softmax(x.float() @ router.float(), dim=-1)
-            v, i = p.sort(dim=-1, descending=True)
-            k = cfg.topk
-            self.calls.append((i[:, :k].sort(dim=-1).values,
-                               (v[:, k - 1] - v[:, k]) / v[:, k - 1]))
+            self._log(torch.softmax(x.float() @ router.float(), dim=-1),
+                      cfg.topk)
             return real(cfg, s, router, x, *a, **kw)
         self.ep.moe_decode = spy
+        if self.mlp is not None:
+            real_route = self.real_route = self.mlp.route
+
+            def route_spy(xg, router, topk):
+                out = real_route(xg, router, topk)
+                self._log(out[0].reshape(-1, out[0].shape[-1]), topk,
+                          out[2].reshape(-1, topk))
+                return out
+            self.mlp.route = route_spy
         return self
 
     def __exit__(self, *exc):
         self.ep.moe_decode = self.real
+        if self.mlp is not None:
+            self.mlp.route = self.real_route
 
 
 def checked_steps(torch, ep, step, step_ref, params, state, tok, n: int,
-                  tag: str):
+                  tag: str, mlp=None, route_tie: float = ROUTE_TIE,
+                  per_row: bool = False):
     """``n`` greedy steps of the kernel path, each also run by the plain
     path (kernel_impl="ref") on a clone of the state it started from, with
     the same token: logits within LM_LOGIT_TOL of the largest |logit|.  A
-    step where a token's routed experts differ between the two paths is
-    only allowed where that token's top-k decision was within ROUTE_TIE
-    (relative) of a tie, and its logits are then not compared (at most
-    half the steps).  Returns (state, next token, what was found)."""
-    worst, agree, total, ties = 0.0, 0, 0, 0
+    token routed to other experts by the two paths is only allowed where
+    that token's top-k decision was within ``route_tie`` (relative) of a
+    tie at the first layer where the paths part; its logits are then not
+    compared: the whole step's (the expert plane fetches for all tokens
+    together), or, with ``per_row`` (a dropping MoE whose groups hold one
+    sequence each), that sequence's alone.  At least half the rows are
+    compared.  Returns (state, next token, what was found)."""
+    worst, agree, total, ties, compared = 0.0, 0, 0, 0, 0
     for i in range(n):
         other = state.clone()
-        with routing_log(torch, ep) as rk:
+        with routing_log(torch, ep, mlp) as rk:
             state, lk = step(params, state, tok)
-        with routing_log(torch, ep) as rr:
+        with routing_log(torch, ep, mlp) as rr:
             other, lr = step_ref(params, other, tok)
         del other
-        tie = False
+        parted = torch.zeros(lk.shape[0], dtype=torch.bool, device=lk.device)
         for (sk, mk), (sr, mr) in zip(rk.calls, rr.calls):
-            diff = (sk != sr).any(dim=-1)
+            diff = (sk != sr).any(dim=-1) & ~parted
             if bool(diff.any()):
+                # the first layer where a token routes apart: later layers
+                # see another hidden state and may part at any margin
                 m = float(torch.minimum(mk, mr)[diff].max())
-                check(m < ROUTE_TIE, f"{tag} step {i}: the plain path routed "
+                check(m < route_tie, f"{tag} step {i}: the plain path routed "
                                      f"a token to other experts with a "
                                      f"top-k margin of {m:.3g}")
-                tie = True
-        if tie:
+                parted |= diff
+        if bool(parted.any()):
             ties += 1
-        else:
-            rel = float((lr - lk).abs().max() / lk.abs().max())
+            if not per_row:
+                parted[:] = True
+        keep = ~parted
+        if bool(keep.any()):
+            rel = float((lr - lk)[keep].abs().max() / lk.abs().max())
             check(rel <= LM_LOGIT_TOL, f"{tag} step {i}: logits of the kernel "
                                        f"path off the plain path's by "
                                        f"{rel:.3g} of the largest "
                                        f"(tolerance {LM_LOGIT_TOL})")
             worst = max(worst, rel)
+        compared += int(keep.sum())
         agree += int((lk.argmax(-1) == lr.argmax(-1)).sum())
         total += lk.shape[0]
         tok = lk.argmax(dim=-1).to(torch.int32)
-    check(2 * ties <= n, f"{tag}: routing ties in {ties} of {n} steps")
+    check(2 * compared >= total, f"{tag}: logits compared on {compared} of "
+                                 f"{total} rows (routing ties in {ties} of "
+                                 f"{n} steps)")
     torch.cuda.empty_cache()
     log(f"[{tag}] {n} steps, each also through the plain path "
         f"(kernel_impl='ref') from a clone of its state: logits within "
         f"{worst:.3g} of the largest (tolerance {LM_LOGIT_TOL}) on "
-        f"{n - ties} steps, {ties} steps with a routing tie (top-k margin "
-        f"under {ROUTE_TIE}); argmax equal for {agree} of {total}")
+        f"{compared} of {total} rows; {ties} steps with a routing tie "
+        f"(top-k margin under {route_tie} where the paths first part, "
+        f"{'that sequence' if per_row else 'the step'} not compared); "
+        f"argmax equal for {agree} of {total}")
     return state, tok, {"logit_rel_err": worst, "argmax_agree": [agree, total],
-                        "tie_steps": ties}
+                        "tie_steps": ties, "rows_compared": [compared, total]}
 
 
 def attention_record(torch, ops, ref, kv, q, lengths, kvc, rate, card,
@@ -2662,6 +2769,450 @@ def phase_lm_expert(torch, ops, ref, configs, api, ep, convert, card: str,
                        "into_two_step_ms": il_ms}}
 
 
+def to_device(tree, dev):
+    """A params or state tree (dicts, lists, tuples of tensors) on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+def to_float(torch, tree):
+    """A params tree with every floating tensor in f32."""
+    if isinstance(tree, dict):
+        return {k: to_float(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_float(torch, v) for v in tree)
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def rest_configs(configs):
+    """[lmmoe] mixtral-8x7b cut to 16 of its 32 layers (32 layers of bf16
+    weights take ~93 GB); [lmssm] xlstm-350m, [lmhybrid] zamba2-1.2b and
+    [lmencdec] seamless-m4t-medium as assigned."""
+    return (configs.get_config("mixtral-8x7b").scaled(n_layers=MOE_LAYERS),
+            configs.get_config("xlstm-350m"),
+            configs.get_config("zamba2-1.2b"),
+            configs.get_config("seamless-m4t-medium"))
+
+
+def lm_header(tag, cfg, params, extra: str, t0: float) -> None:
+    log(f"[{tag}] {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads (Dh {cfg.hd}), d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, bf16: weights "
+        f"{nbytes(params) / 1e9:.2f} GB, {extra}; set up in "
+        f"{time.time() - t0:.1f}s")
+
+
+def counted_run(torch, ops, step, params, state, tok, steps: int, tag: str,
+                want: dict):
+    """``steps`` timed greedy steps with the launch counts set to 0 just
+    before and read just after; each kernel of ``want`` launched exactly
+    that many times a step (every bf16 paged_attention launch on the
+    tensor cores), every other kernel never."""
+    ops.reset_launch_counts()
+    state, tok, ms = greedy_run(torch, step, params, state, tok, steps)
+    launches = ops.launch_counts()
+    per = {k: v / steps for k, v in launches.items()}
+    for k in ("gather_rows", "compact_pages", "cat_decay", "page_scores",
+              "paged_attention", "cat_update"):
+        check(launches[k] == want.get(k, 0) * steps,
+              f"[{tag}] {k} launched {launches[k]} times in {steps} steps, "
+              f"{want.get(k, 0)} a step wanted: {launches}")
+    check(launches["paged_attention_mma"] == launches["paged_attention"],
+          f"[{tag}] {launches['paged_attention_mma']} of "
+          f"{launches['paged_attention']} paged_attention launches on the "
+          f"tensor cores")
+    log(f"[{tag}] launches per step {per}")
+    return state, tok, ms, launches
+
+
+def phase_lm_moe(torch, ops, ref, configs, api, ep, mlp, card: str,
+                 rate: float) -> dict:
+    """mixtral-8x7b at full width, 16 layers deep, through the dropping
+    MoE: decode (8 sequences, 2,048 seeded tokens of context in the dense
+    plane), then decode_long through the window plane (one sequence from
+    4,088 tokens, across the ring's wrap at 4,096)."""
+    dev = torch.device("cuda")
+    cfg = rest_configs(configs)[0]
+    shape = configs.ShapeConfig("serve", LM_SEQ, LM_BATCH, "decode")
+    t0 = time.time()
+    params = api.init_params(cfg, seed=SEED + 10, device=dev)
+    state = api.init_decode_state(cfg, shape, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 11)
+    fill_kv_prefix(torch, state, g, LM_PREFIX)
+    torch.cuda.synchronize()
+    experts = sum(nbytes([b["moe"]["wi"], b["moe"]["wg"], b["moe"]["wo"]])
+                  for b in params["blocks"])
+    lm_header("lmmoe", cfg, params,
+              f"{cfg.moe_experts} experts top-{cfg.moe_topk} "
+              f"({experts / 1e9:.2f} GB of experts), depth cut to "
+              f"{cfg.n_layers} of {configs.get_config(cfg.name).n_layers} "
+              f"layers; dense KV planes "
+              f"{nbytes([[k.k_frames, k.v_frames] for k in state.kv]) / 1e9:.2f}"
+              f" GB, {LM_PREFIX} tokens of context x {LM_BATCH} sequences",
+              t0)
+    step = api.decode_step(cfg, shape)
+    tok = torch.randint(0, cfg.vocab, (LM_BATCH,), generator=g, device=dev,
+                        dtype=torch.int32)
+    state, tok, ms, launches = counted_run(
+        torch, ops, step, params, state, tok, REST_STEPS, "lmmoe",
+        {"paged_attention": cfg.n_layers})
+    check(bool((state.lengths == LM_PREFIX + REST_STEPS).all()),
+          f"[lmmoe] lengths {state.lengths.tolist()}")
+    step_ms = statistics.median(ms[1:])
+    # every expert's weights are read: the batched expert products run
+    # over all 8 experts' capacity slots (8 groups of 1 token, Cg 4)
+    w_bytes = nbytes(params) - params["embed"].nbytes \
+        + LM_BATCH * cfg.d_model * 2
+    G = LM_BATCH
+    Cg = 4
+    flops = 2 * LM_BATCH * (w_bytes - experts) / 2 \
+        + 2 * G * Cg * experts / 2
+    kv_bytes = kv_read_bytes(cfg, LM_BATCH, LM_PREFIX + REST_STEPS // 2)
+    bnd = bound(w_bytes + kv_bytes, flops, rate, PEAK_BF16)
+    log(f"[lmmoe] {REST_STEPS} greedy steps: {step_ms:.3f} ms per step "
+        f"(median, synced; first {ms[0]:.3f} ms); step bound {bnd[0]:.3f} ms "
+        f"by {bnd[1]} (weights read once, every expert, the embedding "
+        f"indexed, {w_bytes / 1e9:.2f} GB, plus K/V {kv_bytes / 1e9:.2f} GB)"
+        f" [{card}]")
+    step_ref = api.decode_step(cfg, shape, kernel_impl="ref")
+    state, tok, vs_plain = checked_steps(torch, ep, step, step_ref, params,
+                                         state, tok, MOE_CHECKED, "lmmoe",
+                                         mlp=mlp, route_tie=MOE_ROUTE_TIE,
+                                         per_row=True)
+    state, prof = profile_steps(torch, step, params, state, tok, LM_PROFILE,
+                                card, "lmmoe")
+    state = nosync_steps(torch, step, params, state, tok, REST_NOSYNC,
+                         "lmmoe")
+    del state
+    torch.cuda.empty_cache()
+
+    # decode_long: the window plane (a ring of 64 pages) across the wrap
+    lshape = configs.ShapeConfig("long", LONG_SEQ, 1, "decode_long")
+    kvc, mode = api.kv_plan(cfg, lshape)
+    check(mode == "window", f"[lmmoe] decode_long took the {mode} plane")
+    W = kvc.num_pages * kvc.page_tokens
+    state = api.init_decode_state(cfg, lshape, device=dev)
+    fill_kv_prefix(torch, state, g, WINDOW_FROM)
+    lstep = api.decode_step(cfg, lshape)
+    tok = tok[:1].clone()
+    state, tok, lms, llaunch = counted_run(
+        torch, ops, lstep, params, state, tok, WINDOW_TIMED, "lmmoe",
+        {"paged_attention": cfg.n_layers})
+    state, tok, lvs = checked_steps(
+        torch, ep, lstep, api.decode_step(cfg, lshape, kernel_impl="ref"),
+        params, state, tok, WINDOW_CHECKED, "lmmoe", mlp=mlp,
+        route_tie=MOE_ROUTE_TIE, per_row=True)
+    end = WINDOW_FROM + WINDOW_TIMED + WINDOW_CHECKED
+    check(int(state.lengths[0]) == end and end > W,
+          f"[lmmoe] window run ended at {int(state.lengths[0])} tokens")
+    l_ms = statistics.median(lms[1:])
+    l_bnd = bound(w_bytes - (LM_BATCH - 1) * cfg.d_model * 2
+                  + kv_read_bytes(cfg, 1, W), 2 * Cg * experts / 2, rate,
+                  PEAK_BF16)
+    log(f"[lmmoe] decode_long through the window plane ({kvc.num_pages} "
+        f"pages of {kvc.page_tokens}, window {W}), one sequence from "
+        f"{WINDOW_FROM} tokens: {WINDOW_TIMED} timed steps at {l_ms:.3f} ms "
+        f"(median; bound {l_bnd[0]:.3f} ms by {l_bnd[1]}, every expert read "
+        f"as at B 8), then {WINDOW_CHECKED} checked steps across the wrap "
+        f"at {W}, lengths {end} [{card}]")
+    del params, state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "window_launches": llaunch,
+            "step_ms": step_ms, "first_ms": ms[0], "bound_ms": bnd[0],
+            "vs_plain": vs_plain, "profile": prof, "window_step_ms": l_ms,
+            "window_bound_ms": l_bnd[0], "window_vs_plain": lvs}
+
+
+def phase_lm_ssm(torch, ops, configs, api, card: str, rate: float) -> dict:
+    """xlstm-350m at full width and depth, batch 128 (decode_32k's batch):
+    16 timed greedy steps from a fresh state (no kernel on this path);
+    then 2 of the sequences for 4 more steps on the card and on the CPU,
+    from the same weights and state copied to the host."""
+    dev = torch.device("cuda")
+    cfg = rest_configs(configs)[1]
+    shape = configs.ShapeConfig("serve", 32768, SSM_BATCH, "decode")
+    t0 = time.time()
+    params = api.init_params(cfg, seed=SEED + 12, device=dev)
+    state = api.init_decode_state(cfg, shape, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 13)
+    torch.cuda.synchronize()
+    st_bytes = nbytes(state.kv)
+    lm_header("lmssm", cfg, params,
+              f"{api._n_groups(cfg)} (mLSTM, sLSTM) groups, recurrent state "
+              f"{st_bytes / 1e9:.2f} GB f32 for {SSM_BATCH} sequences", t0)
+    step = api.decode_step(cfg, shape)
+    tok = torch.randint(0, cfg.vocab, (SSM_BATCH,), generator=g, device=dev,
+                        dtype=torch.int32)
+    state, tok, ms, launches = counted_run(torch, ops, step, params, state,
+                                           tok, REST_STEPS, "lmssm", {})
+    step_ms = statistics.median(ms[1:])
+    w_bytes = nbytes(params) - params["embed"].nbytes \
+        + SSM_BATCH * cfg.d_model * 2
+    bnd = bound(w_bytes + 2 * st_bytes, 2 * SSM_BATCH * w_bytes / 2, rate,
+                PEAK_BF16)
+    log(f"[lmssm] {REST_STEPS} greedy steps: {step_ms:.3f} ms per step "
+        f"(median, synced; first {ms[0]:.3f} ms); step bound {bnd[0]:.3f} ms "
+        f"by {bnd[1]} (weights {w_bytes / 1e9:.2f} GB read once, the "
+        f"recurrent state {st_bytes / 1e9:.2f} GB read and written) [{card}]")
+
+    # the card against the CPU: 2 sequences, 4 steps, the same tokens, in
+    # f32 (the bf16 weights cast up, exact) and in bf16.  A bf16 xLSTM 24
+    # blocks deep moves its logits by about 5e-2 of the largest with any
+    # change of summation order, so f32 holds the card's arithmetic
+    # tightly, and the bf16 main path is held to the f32 answer no worse
+    # than the larger of LM_LOGIT_TOL and twice the CPU's bf16 distance
+    n = SSM_CPU_SEQS
+    cpu = torch.device("cpu")
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    cshape = configs.ShapeConfig("cpu", 32768, n, "decode")
+    params32 = to_float(torch, params)
+    cparams = to_device(params, cpu)
+    cparams32 = to_float(torch, cparams)
+    cstate = api.ServeState(
+        state.lengths[:n].cpu(),
+        [to_device({k: (tuple(t[:n] for t in v) if isinstance(v, tuple)
+                        else v[:n]) for k, v in gs.items()}, cpu)
+         for gs in state.kv], ())
+    cstate32, state32 = cstate.clone(), state.clone()
+    cstep, cstep32 = (api.decode_step(cfg, cshape),
+                      api.decode_step(cfg32, cshape))
+    step32 = api.decode_step(cfg32, shape)
+    w32 = w_card = w_cpu = 0.0
+    t1 = time.time()
+    for i in range(SSM_CPU_STEPS):
+        state, lk = step(params, state, tok)
+        state32, lk32 = step32(params32, state32, tok)
+        cstate, lc = cstep(cparams, cstate, tok[:n].cpu())
+        cstate32, lc32 = cstep32(cparams32, cstate32, tok[:n].cpu())
+        top = float(lc32.abs().max())
+        e32 = float((lk32[:n].cpu() - lc32).abs().max()) / top
+        check(e32 <= SSM_F32_TOL, f"[lmssm] step {i}: the card's f32 logits "
+                                  f"off the CPU's by {e32:.3g} of the "
+                                  f"largest (tolerance {SSM_F32_TOL})")
+        w32 = max(w32, e32)
+        w_card = max(w_card, float((lk[:n].cpu().float() - lc32).abs().max())
+                     / top)
+        w_cpu = max(w_cpu, float((lc.float() - lc32).abs().max()) / top)
+        tok = lk.argmax(dim=-1).to(torch.int32)
+    lim = max(LM_LOGIT_TOL, 2 * w_cpu)
+    check(w_card <= lim, f"[lmssm] the card's bf16 logits off the f32 answer "
+                         f"by {w_card:.3g} of the largest, the CPU's bf16 by "
+                         f"{w_cpu:.3g} (limit {lim:.3g})")
+    log(f"[lmssm] {SSM_CPU_STEPS} steps of {n} sequences on the card and on "
+        f"the CPU ({time.time() - t1:.1f}s) from the same weights and state: "
+        f"f32 logits within {w32:.3g} of the largest (tolerance "
+        f"{SSM_F32_TOL}); bf16 off the f32 answer by {w_card:.3g} on the "
+        f"card and {w_cpu:.3g} on the CPU (limit {lim:.3g})")
+    del cparams, cstate, cparams32, cstate32, params32, state32
+    state, prof = profile_steps(torch, step, params, state, tok, LM_PROFILE,
+                                card, "lmssm")
+    state = nosync_steps(torch, step, params, state, tok, REST_NOSYNC,
+                         "lmssm")
+    del params, state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "first_ms": ms[0],
+            "bound_ms": bnd[0], "vs_cpu_f32": w32, "bf16_vs_f32_card": w_card,
+            "bf16_vs_f32_cpu": w_cpu, "profile": prof}
+
+
+def seed_mamba(torch, st: dict, g) -> None:
+    """Mamba2 conv and SSM states from ``g`` (N(0, 1)), as a context would
+    leave them."""
+    for t in st["conv"] + st["ssm"]:
+        t.normal_(generator=g)
+
+
+def phase_lm_hybrid(torch, ops, ref, configs, api, ep, card: str,
+                    rate: float) -> dict:
+    """zamba2-1.2b at full width and depth: decode (8 sequences, 2,048
+    seeded tokens of context in each group's dense plane), then long_500k
+    (one sequence from 524,224 tokens, each group's sparse plane filled
+    as [kvsparse] fills one)."""
+    dev = torch.device("cuda")
+    cfg = rest_configs(configs)[2]
+    shape = configs.ShapeConfig("serve", LM_SEQ, LM_BATCH, "decode")
+    t0 = time.time()
+    params = api.init_params(cfg, seed=SEED + 14, device=dev)
+    state = api.init_decode_state(cfg, shape, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 15)
+    fill_kv_prefix(torch, state, g, LM_PREFIX)
+    for gs in state.kv + [state.extra]:
+        seed_mamba(torch, gs, g)
+    torch.cuda.synchronize()
+    planes = kv_planes(state)
+    lm_header("lmhybrid", cfg, params,
+              f"6 groups of 5 Mamba2 blocks + the shared attention, 2 tail "
+              f"blocks; {len(planes)} dense KV planes "
+              f"{nbytes([[k.k_frames, k.v_frames] for k in planes]) / 1e9:.2f}"
+              f" GB, {LM_PREFIX} tokens of context x {LM_BATCH} sequences",
+              t0)
+    step = api.decode_step(cfg, shape)
+    tok = torch.randint(0, cfg.vocab, (LM_BATCH,), generator=g, device=dev,
+                        dtype=torch.int32)
+    state, tok, ms, launches = counted_run(
+        torch, ops, step, params, state, tok, REST_STEPS, "lmhybrid",
+        {"paged_attention": 6})
+    step_ms = statistics.median(ms[1:])
+    w_bytes = nbytes(params) - params["embed"].nbytes \
+        + LM_BATCH * cfg.d_model * 2
+    ssm_bytes = nbytes([gs["ssm"] + gs["conv"]
+                        for gs in state.kv + [state.extra]])
+    kv_bytes = 6 * 2 * LM_BATCH * (LM_PREFIX + REST_STEPS // 2) \
+        * cfg.n_kv_heads * cfg.hd * 2
+    bnd = bound(w_bytes + kv_bytes + 2 * ssm_bytes,
+                2 * LM_BATCH * w_bytes / 2, rate, PEAK_BF16)
+    log(f"[lmhybrid] {REST_STEPS} greedy steps: {step_ms:.3f} ms per step "
+        f"(median, synced; first {ms[0]:.3f} ms); step bound {bnd[0]:.3f} ms "
+        f"by {bnd[1]} (weights {w_bytes / 1e9:.2f} GB with the shared block "
+        f"once, K/V {kv_bytes / 1e9:.2f} GB, Mamba2 states "
+        f"{ssm_bytes / 1e9:.3f} GB read and written) [{card}]")
+    state, tok, vs_plain = checked_steps(
+        torch, ep, step, api.decode_step(cfg, shape, kernel_impl="ref"),
+        params, state, tok, REST_CHECKED, "lmhybrid")
+    state, prof = profile_steps(torch, step, params, state, tok, LM_PROFILE,
+                                card, "lmhybrid")
+    state = nosync_steps(torch, step, params, state, tok, REST_NOSYNC,
+                         "lmhybrid")
+    kvc, _ = api.kv_plan(cfg, shape)
+    q = torch.randn((LM_BATCH, cfg.n_heads, cfg.hd), generator=g,
+                    device=dev, dtype=cfg.dtype)
+    attn = attention_record(torch, ops, ref, state.kv[0]["attn_kv"], q,
+                            state.lengths, kvc, rate, card, "lmhybrid")
+    del state, planes
+    torch.cuda.empty_cache()
+
+    # long_500k: each group's sparse plane, one shard
+    lshape = configs.ShapeConfig("long", LONG_SEQ, 1, "decode_long")
+    lkvc, mode = api.kv_plan(cfg, lshape)
+    check(mode == "sparse", f"[lmhybrid] long_500k took the {mode} plane")
+    t0 = time.time()
+    state = api.init_decode_state(cfg, lshape, device=dev)
+    for gs in state.kv:
+        fill_sparse_slab(torch, lkvc, gs["attn_kv"][0], g)
+    for gs in state.kv + [state.extra]:
+        seed_mamba(torch, gs, g)
+    state.lengths.fill_(LONG_FROM)
+    torch.cuda.synchronize()
+    planes = kv_planes(state)
+    log(f"[lmhybrid] long_500k: {len(planes)} sparse planes, slab "
+        f"{tuple(planes[0].k_slab.shape)} bf16 x2 each "
+        f"({nbytes([[k.k_slab, k.v_slab] for k in planes]) / 1e9:.2f} GB in "
+        f"all), top-{lkvc.sparse_topk} of {lkvc.num_frames} frames, fetch "
+        f"budget {lkvc.fetch_budget}, from {LONG_FROM} tokens; filled in "
+        f"{time.time() - t0:.1f}s")
+    lstep = api.decode_step(cfg, lshape)
+    tok = tok[:1].clone()
+    # the sparse step attends with plain tensor code (JAX's partial
+    # attention is plain jnp), so paged_attention is not on this path
+    state, tok, lms, llaunch = counted_run(
+        torch, ops, lstep, params, state, tok, REST_STEPS, "lmhybrid",
+        {"page_scores": 6, "gather_rows": 12})
+    l_ms = statistics.median(lms[1:])
+    whole, packed = check_frames_hold_slab(torch, lkvc, planes[0])
+    slab_bytes = 6 * 2 * lkvc.kv_heads * lkvc.sparse_topk * lkvc.page_tokens \
+        * lkvc.head_dim * 2
+    sum_bytes = 6 * 2 * planes[0].kmax.nbytes
+    lbnd = bound(w_bytes + slab_bytes + sum_bytes, 2 * w_bytes / 2, rate,
+                 PEAK_BF16)
+    log(f"[lmhybrid] long_500k {REST_STEPS} greedy steps: {l_ms:.3f} ms per "
+        f"step (median, synced; first {lms[0]:.3f} ms); gather_rows "
+        f"{llaunch['gather_rows'] / REST_STEPS:.0f} a step (K and V of each "
+        f"of the 6 fetching planes), page_scores "
+        f"{llaunch['page_scores'] / REST_STEPS:.0f}; step bound "
+        f"{lbnd[0]:.3f} ms by {lbnd[1]} (weights, the 64 selected pages "
+        f"and the summaries of each plane); plane 0 frames hold their slab "
+        f"rows ({whole} whole, {packed} packed) [{card}]")
+    state, tok, lvs = checked_steps(
+        torch, ep, lstep, api.decode_step(cfg, lshape, kernel_impl="ref"),
+        params, state, tok, REST_CHECKED, "lmhybrid")
+    state, lprof = profile_steps(torch, lstep, params, state, tok,
+                                 LM_PROFILE, card, "lmhybrid")
+    state = nosync_steps(torch, lstep, params, state, tok, REST_NOSYNC,
+                         "lmhybrid")
+    check(int(state.lengths[0]) == LONG_FROM + REST_STEPS + REST_CHECKED
+          + LM_PROFILE + REST_NOSYNC,
+          f"[lmhybrid] long_500k ended at {int(state.lengths[0])} tokens")
+    q = torch.randn((1, cfg.n_heads, cfg.hd), generator=g, device=dev,
+                    dtype=cfg.dtype)
+    scores = scores_record(torch, ops, ref, q, planes[0].kmax,
+                           planes[0].kmin, rate, card, "lmhybrid")
+    del params, state, planes
+    torch.cuda.empty_cache()
+    return {"launches": launches, "long_launches": llaunch,
+            "step_ms": step_ms, "first_ms": ms[0], "bound_ms": bnd[0],
+            "vs_plain": vs_plain, "profile": prof, "attention": attn,
+            "long_step_ms": l_ms, "long_bound_ms": lbnd[0],
+            "long_vs_plain": lvs, "long_profile": lprof, "scores": scores}
+
+
+def phase_lm_encdec(torch, ops, ref, configs, api, ep, card: str,
+                    rate: float) -> dict:
+    """seamless-m4t-medium at full width: decode (8 sequences, 2,048
+    seeded tokens of context in each decoder layer's dense plane, a seeded
+    encoder memory of 1,024 positions)."""
+    dev = torch.device("cuda")
+    cfg = rest_configs(configs)[3]
+    shape = configs.ShapeConfig("serve", LM_SEQ, LM_BATCH, "decode")
+    t0 = time.time()
+    params = api.init_params(cfg, seed=SEED + 16, device=dev)
+    state = api.init_decode_state(cfg, shape, enc_len=ENC_LEN, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 17)
+    fill_kv_prefix(torch, state, g, LM_PREFIX)
+    for t in state.extra["k"] + state.extra["v"]:
+        t.normal_(generator=g)
+    torch.cuda.synchronize()
+    enc = nbytes(params["enc_blocks"]) + params["enc_ln"].nbytes
+    mem = nbytes(state.extra)
+    lm_header("lmencdec", cfg, params,
+              f"{cfg.dec_layers} decoder layers ({enc / 1e9:.2f} GB of "
+              f"encoder weights, unused at decode); dense KV planes "
+              f"{nbytes([[k.k_frames, k.v_frames] for k in state.kv]) / 1e9:.2f}"
+              f" GB, cross memory {mem / 1e9:.2f} GB (enc_len {ENC_LEN}), "
+              f"{LM_PREFIX} tokens of context x {LM_BATCH} sequences", t0)
+    step = api.decode_step(cfg, shape)
+    tok = torch.randint(0, cfg.vocab, (LM_BATCH,), generator=g, device=dev,
+                        dtype=torch.int32)
+    state, tok, ms, launches = counted_run(
+        torch, ops, step, params, state, tok, REST_STEPS, "lmencdec",
+        {"paged_attention": cfg.dec_layers})
+    step_ms = statistics.median(ms[1:])
+    w_bytes = nbytes(params) - params["embed"].nbytes - enc \
+        + LM_BATCH * cfg.d_model * 2
+    kv_bytes = cfg.dec_layers * 2 * LM_BATCH * (LM_PREFIX + REST_STEPS // 2) \
+        * cfg.n_kv_heads * cfg.hd * 2
+    bnd = bound(w_bytes + kv_bytes + mem, 2 * LM_BATCH * w_bytes / 2, rate,
+                PEAK_BF16)
+    log(f"[lmencdec] {REST_STEPS} greedy steps: {step_ms:.3f} ms per step "
+        f"(median, synced; first {ms[0]:.3f} ms); step bound {bnd[0]:.3f} ms "
+        f"by {bnd[1]} (decoder weights and lm_head {w_bytes / 1e9:.2f} GB, "
+        f"K/V {kv_bytes / 1e9:.2f} GB, cross memory {mem / 1e9:.2f} GB) "
+        f"[{card}]")
+    state, tok, vs_plain = checked_steps(
+        torch, ep, step, api.decode_step(cfg, shape, kernel_impl="ref"),
+        params, state, tok, REST_CHECKED, "lmencdec")
+    state, prof = profile_steps(torch, step, params, state, tok, LM_PROFILE,
+                                card, "lmencdec")
+    state = nosync_steps(torch, step, params, state, tok, REST_NOSYNC,
+                         "lmencdec")
+    kvc, _ = api.kv_plan(cfg, shape)
+    q = torch.randn((LM_BATCH, cfg.n_heads, cfg.hd), generator=g,
+                    device=dev, dtype=cfg.dtype)
+    attn = attention_record(torch, ops, ref, state.kv[0], q, state.lengths,
+                            kvc, rate, card, "lmencdec")
+    del params, state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "first_ms": ms[0],
+            "bound_ms": bnd[0], "vs_plain": vs_plain, "profile": prof,
+            "attention": attn}
+
+
 def port_modules():
     """The port's modules the phases use, as attributes of one object."""
     import numpy as np
@@ -2698,7 +3249,7 @@ def main() -> int:
     from repro_torch.core import expertplane, kvplane, plane
     from repro_torch.kernels import _build, gather_objects, ops, ref
     from repro_torch.launch import serve
-    from repro_torch.models import api
+    from repro_torch.models import api, mlp
 
     M = port_modules()
     batch, engine, kvworkload = M.batch, M.engine, M.kvworkload
@@ -2873,6 +3424,23 @@ def main() -> int:
     lm = phase_lm(torch, ops, ref, configs, api, expertplane, card, rate)
     lmx = phase_lm_expert(torch, ops, ref, configs, api, expertplane, convert,
                           card, rate)
+    log("[rest] depth cut: mixtral-8x7b decodes 16 of its 32 layers (32 "
+        "layers of bf16 weights take ~93 GB)")
+    log(f"[rest] context: decode from {LM_PREFIX} seeded tokens in a "
+        f"{LM_SEQ}-token plane; mixtral's window from {WINDOW_FROM}; "
+        f"zamba2's long_500k from {LONG_FROM} of {LONG_SEQ}; xlstm from a "
+        f"fresh state")
+    moe = phase_lm_moe(torch, ops, ref, configs, api, expertplane, mlp, card,
+                       rate)
+    ssm = phase_lm_ssm(torch, ops, configs, api, card, rate)
+    hyb = phase_lm_hybrid(torch, ops, ref, configs, api, expertplane, card,
+                          rate)
+    encd = phase_lm_encdec(torch, ops, ref, configs, api, expertplane, card,
+                           rate)
+    rest = {"lmmoe": moe["launches"], "lmmoe_window": moe["window_launches"],
+            "lmssm": ssm["launches"], "lmhybrid": hyb["launches"],
+            "lmhybrid_long": hyb["long_launches"],
+            "lmencdec": encd["launches"]}
     for k in kernels:
         if k["name"] in ("page_scores", "paged_attention", "cat_update"):
             # cat_update is on no runtime path, in the JAX package either
@@ -2891,7 +3459,8 @@ def main() -> int:
     for k in kernels:
         k.setdefault("launches_by_path", {}).update(
             lm=lm["launches"][k["name"]], lmexpert=lmx["launches"][k["name"]],
-            shardmesh=by_path["shardmesh"][k["name"]])
+            shardmesh=by_path["shardmesh"][k["name"]],
+            **{p: c[k["name"]] for p, c in rest.items()})
     gr = next(k for k in kernels if k["name"] == "gather_rows")
     gr["expert_fetch"] = dict(lmx["gather"], launches_per_step=lmx[
         "launches"]["gather_rows"] / LM_STEPS)
@@ -2899,6 +3468,26 @@ def main() -> int:
         "paged_attention"] / LM_STEPS)
     pa["dh112"] = dict(lmx["attention"], launches_per_step=lmx["launches"][
         "paged_attention"] / LM_STEPS)
+    # G = 1, Dh 64: zamba2's shared attention (8 x 32 pairs, one block a
+    # pair) and seamless's self-attention (8 x 16 pairs, pages split)
+    pa["g1_dh64_zamba2"] = dict(hyb["attention"], launches_per_step=hyb[
+        "launches"]["paged_attention"] / REST_STEPS)
+    pa["g1_dh64_seamless"] = dict(encd["attention"], launches_per_step=encd[
+        "launches"]["paged_attention"] / REST_STEPS)
+    ps = next(k for k in kernels if k["name"] == "page_scores")
+    ps["zamba2_long"] = dict(hyb["scores"], launches_per_step=hyb[
+        "long_launches"]["page_scores"] / REST_STEPS)
+    gr["zamba2_long_launches_per_step"] = hyb["long_launches"][
+        "gather_rows"] / REST_STEPS
+    log(f"[rest] summary: mixtral-8x7b 16 layers {moe['step_ms']:.3f} ms per "
+        f"step (bound {moe['bound_ms']:.3f} ms), window "
+        f"{moe['window_step_ms']:.3f} ms; xlstm-350m batch {SSM_BATCH} "
+        f"{ssm['step_ms']:.3f} ms (bound {ssm['bound_ms']:.3f} ms); "
+        f"zamba2-1.2b {hyb['step_ms']:.3f} ms (bound {hyb['bound_ms']:.3f} "
+        f"ms), long_500k {hyb['long_step_ms']:.3f} ms (bound "
+        f"{hyb['long_bound_ms']:.3f} ms); seamless-m4t-medium "
+        f"{encd['step_ms']:.3f} ms (bound {encd['bound_ms']:.3f} ms) "
+        f"[{card}]")
     log(f"[lm] summary: llama3-8b {lm['step_ms']:.3f} ms per step (bound "
         f"{lm['bound_ms']:.3f} ms), kimi-k2 one layer {lmx['step_ms']:.3f} "
         f"ms per step (bound {lmx['bound_ms']:.3f} ms) [{card}]")

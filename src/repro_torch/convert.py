@@ -12,7 +12,9 @@ plane's state to the port this way.
 plane's ``KVPlaneState``, a list of shard states standing for JAX's
 stacked leading shard axis; ``expert_state_*`` for the expert plane, and
 ``params_from_numpy``/``serve_state_*`` for the model's params and serve
-state, whose per-layer lists stand for JAX's stacked layer axis.
+state of every family, whose per-layer lists stand for JAX's stacked layer
+axes (a hybrid group's nested ``mamba`` list for the second axis of JAX's
+``[6, 5, ...]`` leaves).
 """
 from __future__ import annotations
 
@@ -156,17 +158,25 @@ def _tree(t, fn):
     return fn(t)
 
 
+def _carry(defs, a, dev):
+    """JAX params ``a`` in the layout of the port's defs tree ``defs``:
+    where ``defs`` holds a list of n layers, JAX's leaves have a leading
+    axis of n."""
+    if isinstance(defs, list):
+        return [_carry(d, _tree(a, lambda x, i=i: np.asarray(x)[i]), dev)
+                for i, d in enumerate(defs)]
+    if isinstance(defs, dict):
+        return {k: _carry(v, a[k], dev) for k, v in defs.items()}
+    return _tensor(a, dev)
+
+
 def params_from_numpy(cfg, jax_params, device="cuda") -> dict:
-    """The JAX package's params (nested dicts, ``blocks`` leaves stacked
-    ``[L, ...]``) in the port's layout: the same key names, ``blocks`` a
-    list of L per-layer dicts, each leaf in its JAX dtype."""
+    """The JAX package's params (nested dicts, stacked leaves) in the
+    port's layout: the same key names, every stacked group (``blocks``,
+    ``enc_blocks``, ``dec_blocks``, a hybrid group's ``mamba``, ``tail``) a
+    list of per-layer dicts, each leaf in its JAX dtype."""
     dev = st.resolve_device(device)
-    out = {k: _tree(v, lambda a: _tensor(a, dev))
-           for k, v in jax_params.items() if k != "blocks"}
-    blocks = _tree(jax_params["blocks"], np.asarray)
-    out["blocks"] = [_tree(blocks, lambda a: _tensor(a[i], dev))
-                     for i in range(cfg.n_layers)]
-    return out
+    return _carry(api.model_defs(cfg), jax_params, dev)
 
 
 def _expert_np(s: ep.ExpertPlaneState) -> dict:
@@ -207,28 +217,95 @@ def expert_state_from_numpy(cfg: ep.ExpertPlaneConfig, d, device="cuda"):
     return _expert_one(cfg, d, dev)
 
 
+def _np(x: torch.Tensor) -> np.ndarray:
+    if x.dtype == torch.bfloat16:
+        x = x.to(torch.float32)
+    return x.cpu().numpy()
+
+
+def _stack_np(parts: list):
+    p0 = parts[0]
+    if isinstance(p0, dict):
+        return {k: _stack_np([p[k] for p in parts]) for k in p0}
+    if isinstance(p0, tuple):
+        return tuple(_stack_np([p[i] for p in parts]) for i in range(len(p0)))
+    return np.stack(parts)
+
+
+def _tree_np(x, kvc):
+    """A serve state subtree as JAX's arrays: a list is a stacked axis, a
+    KV or expert plane state its fields."""
+    if isinstance(x, kv.KVPlaneState):
+        return _kv_np(kvc, x)
+    if isinstance(x, ep.ExpertPlaneState):
+        return _expert_np(x)
+    if isinstance(x, dict):
+        return {k: _tree_np(v, kvc) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_tree_np(v, kvc) for v in x)
+    if isinstance(x, list):
+        return _stack_np([_tree_np(v, kvc) for v in x])
+    return _np(x)
+
+
 def serve_state_to_numpy(cfg, shape, s, shards: int = 1) -> dict:
     """A port ``ServeState`` as the JAX one's arrays: ``lengths``, ``kv``
-    (fields stacked ``[L, ...]``, ``[L, D, ...]`` in sparse mode) and
-    ``extra`` (the expert planes stacked ``[L, ...]``, or ``()``)."""
+    and ``extra`` with every per-layer list stacked on a leading axis (KV
+    plane fields ``[L, ...]``, ``[L, D, ...]`` in sparse mode; a hybrid
+    group's ``conv``/``ssm`` ``[6, 5, ...]``), bf16 as f32; ``extra`` is
+    ``()`` where the family has none."""
     kvc, _ = api.kv_plan(cfg, shape, shards)
-    layers = [kv_state_to_numpy(kvc, x) for x in s.kv]
     return {"lengths": s.lengths.cpu().numpy(),
-            "kv": {k: np.stack([p[k] for p in layers]) for k in layers[0]},
-            "extra": expert_state_to_numpy(s.extra) if s.extra else ()}
+            "kv": _tree_np(s.kv, kvc),
+            "extra": _tree_np(s.extra, kvc) if len(s.extra) else ()}
+
+
+def _layers(a, dev, dtype, axes: int = 1):
+    """An array with ``axes`` stacked leading axes as nested lists of
+    tensors on ``dev`` in ``dtype``."""
+    a = np.asarray(a)
+    if axes == 0:
+        return _tensor(a, dev, dtype)
+    return [_layers(a[i], dev, dtype, axes - 1) for i in range(a.shape[0])]
 
 
 def serve_state_from_numpy(cfg, shape, d, shards: int = 1, device="cuda"):
     """A port ``ServeState`` from the JAX one (a mapping or anything with
-    ``_asdict()``, e.g. a ``jax.device_get`` of it)."""
+    ``_asdict()``, e.g. a ``jax.device_get`` of it), for every family."""
     dev = st.resolve_device(device)
     d = _as_dict(d)
     kvc, _ = api.kv_plan(cfg, shape, shards)
-    kvd = _as_dict(d["kv"])
-    kv = [kv_state_from_numpy(kvc, {k: np.asarray(v)[i]
-                                    for k, v in kvd.items()}, dev)
-          for i in range(np.shape(kvd["step"])[0])]
+    f32 = torch.float32
+    lengths = _tensor(d["lengths"], dev, torch.int32)
+
+    def planes(kvd):
+        kvd = _as_dict(kvd)
+        return [kv_state_from_numpy(kvc, {k: np.asarray(v)[i]
+                                          for k, v in kvd.items()}, dev)
+                for i in range(np.shape(kvd["step"])[0])]
+
+    if cfg.family == "ssm":
+        k = _as_dict(d["kv"])
+        L = np.shape(k["mlstm_s"])[0]
+        kvs = [{"mlstm_s": _layers(k["mlstm_s"][i], dev, f32, 0),
+                "mlstm_n": _layers(k["mlstm_n"][i], dev, f32, 0),
+                "slstm": tuple(_layers(a[i], dev, f32, 0)
+                               for a in k["slstm"])} for i in range(L)]
+        return api.ServeState(lengths, kvs, ())
+    if cfg.family == "hybrid":
+        k, t = _as_dict(d["kv"]), _as_dict(d["extra"])
+        conv = _layers(k["conv"], dev, cfg.dtype, 2)
+        ssm = _layers(k["ssm"], dev, f32, 2)
+        kvs = [{"conv": c, "ssm": s, "attn_kv": a}
+               for c, s, a in zip(conv, ssm, planes(k["attn_kv"]))]
+        tail = {"conv": _layers(t["conv"], dev, cfg.dtype),
+                "ssm": _layers(t["ssm"], dev, f32)}
+        return api.ServeState(lengths, kvs, tail)
+    if cfg.family == "encdec":
+        x = _as_dict(d["extra"])
+        cross = {n: _layers(x[n], dev, cfg.dtype) for n in ("k", "v")}
+        return api.ServeState(lengths, planes(d["kv"]), cross)
     extra = ()
     if api._uses_expert_plane(cfg):
         extra = expert_state_from_numpy(api._expert_cfg(cfg), d["extra"], dev)
-    return api.ServeState(_tensor(d["lengths"], dev, torch.int32), kv, extra)
+    return api.ServeState(lengths, planes(d["kv"]), extra)

@@ -5,22 +5,29 @@
   * ``decode_step(cfg, shape)``         — (params, state, tokens) ->
                                           (state, logits)
 
-for the decoder-only attention families (``dense``, ``moe`` with
-``atlas_experts``, ``vlm``), through the dense, window and sparse KV plane
-modes and the expert plane.  A ``vlm``'s vision frontend enters only the
-forward (prefill and training) path, which the port does not have yet:
-decode never reads ``patch_proj``, as in JAX.  The ``ssm``, ``hybrid`` and
-``encdec`` families, the dropping MoE and the training and prefill steps
-wait for ROADMAP Queue 1 item 9 and raise.
+for every family: the decoder-only attention families (``dense``, ``moe``
+through the expert plane or the dropping MoE, ``vlm``) through the dense,
+window and sparse KV plane modes; xLSTM (``ssm``) over its recurrent
+states; zamba2 (``hybrid``), whose shared attention block attends through
+each group's own dense or sparse KV plane; and the encoder-decoder
+(``encdec``), self-attention through the dense KV plane and cross attention
+against the encoder memory held in the state.  A ``vlm``'s vision frontend
+enters only the forward (prefill and training) path, which the port does
+not have yet: decode never reads ``patch_proj``, as in JAX.  The training
+and prefill steps wait for ROADMAP Queue 1 item 4.
 
 Where the port departs from the JAX form, and why:
 
 * **Layers are a list.**  JAX scans over stacked ``[L, ...]`` params and
-  plane states; here ``params["blocks"]``, ``ServeState.kv`` and
-  ``ServeState.extra`` are lists of per-layer entries (a sparse layer's KV
-  entry a list of shard states) and the step loops over them.
-* **State in place.**  A step updates the planes in place and returns a
-  ``ServeState`` with the new ``lengths`` over the same planes.
+  states; here ``params["blocks"]`` (``dec_blocks``, a group's ``mamba``,
+  ``tail``), ``ServeState.kv`` and ``ServeState.extra`` hold lists of
+  per-layer entries (a sparse layer's KV entry a list of shard states) and
+  the step loops over them.
+* **Planes in place.**  A step updates the KV and expert planes in place
+  and returns a ``ServeState`` over the same planes with the new
+  ``lengths`` and new recurrent and conv state tensors (JAX's are new
+  arrays too; writing them back in place would cost one more pass over
+  xLSTM's matrix memory each step).
 * **The embedding is indexed.**  JAX multiplies a one-hot matrix into the
   embedding; each output has a single nonzero term, so ``embed[tokens]``
   gives the same bits without reading the whole table each step.  The
@@ -38,8 +45,11 @@ import torch
 from ..configs import ArchConfig, ShapeConfig
 from ..core import expertplane, kvplane
 from ..core import state as st
+from . import attention as attn_lib
+from . import encdec as encdec_lib
 from . import lm as lm_lib
 from . import mlp as mlp_lib
+from . import ssm as ssm_lib
 from .common import dense, init_params as _init, rms_norm, rope
 
 PAGE_TOKENS = 64          # KV page size (tokens) across the framework
@@ -48,22 +58,10 @@ SPARSE_LOCAL_FRAMES = 96  # frames per shard in sparse mode
 FETCH_BUDGET = 4          # pages fetched per shard per step
 KIMI_HOT_EXPERTS = 32     # resident experts per layer (kimi serve)
 
-_DECODER_ONLY = ("dense", "moe", "vlm")
-
-
-def _unported(what: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP Queue 1, "
-                               f"item 9")
-
-
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in _DECODER_ONLY:
-        raise _unported(f"decode for the {cfg.family!r} family")
-
 
 def model_defs(cfg: ArchConfig) -> dict:
     if cfg.family == "encdec":
-        raise _unported("the encdec model")
+        return encdec_lib.model_defs(cfg)
     return lm_lib.model_defs(cfg)
 
 
@@ -106,10 +104,16 @@ def _kv_cfg_sparse(cfg: ArchConfig, S: int, shards: int
 
 
 def kv_plan(cfg: ArchConfig, shape: ShapeConfig, shards: int = 1
-            ) -> tuple[kvplane.KVPlaneConfig, str]:
-    """The KV plane config of each layer and its mode ("dense", "window" or
-    "sparse"), as ``decode_step`` picks them."""
+            ) -> tuple[kvplane.KVPlaneConfig | None, str | None]:
+    """The KV plane config of each attention layer (or shared-attention
+    application) and its mode ("dense", "window" or "sparse"), as
+    ``decode_step`` picks them; ``(None, None)`` for xLSTM, which has no
+    KV cache.  The encoder-decoder's self-attention is always dense."""
     B, S = shape.global_batch, shape.seq_len
+    if cfg.family == "ssm":
+        return None, None
+    if cfg.family == "encdec":
+        return _kv_cfg_dense(cfg, B, S), "dense"
     if shape.kind == "decode_long" and cfg.sliding_window:
         return _kv_cfg_window(cfg, B), "window"
     if shape.kind == "decode_long":
@@ -118,14 +122,28 @@ def kv_plan(cfg: ArchConfig, shape: ShapeConfig, shards: int = 1
 
 
 class ServeState(NamedTuple):
-    """Serve state: per-layer lists inside."""
+    """Serve state: per-group lists inside, by family:
+
+    * dense/moe/vlm: ``kv`` [L] KV plane states ([L][D] if sparse),
+      ``extra`` [L] expert plane states or ``()``;
+    * ssm: ``kv`` [L] dicts ``mlstm_s`` [B,H,dh,dh], ``mlstm_n``
+      [B,H,dh,1] (f32) and ``slstm`` (c, n, m, h) [B,H,dh'] f32;
+    * hybrid: ``kv`` [6] dicts ``conv`` [5] [B,3,C], ``ssm`` [5]
+      [B,H,N,64] f32 and ``attn_kv`` (a KV plane state, a list of shard
+      states if sparse); ``extra`` the tail's ``conv``/``ssm`` [2];
+    * encdec: ``kv`` [L] KV plane states, ``extra`` the encoder memory
+      ``k``/``v`` [L] [B, S_enc, KVH, Dh].
+    """
     lengths: torch.Tensor         # [B] tokens already in context
-    kv: Any                       # [L] KV plane states ([L][D] if sparse)
-    extra: Any                    # [L] expert plane states, or ()
+    kv: Any
+    extra: Any
 
     def clone(self) -> "ServeState":
-        """A copy of every plane, for an oracle run beside this one."""
+        """A copy of every plane and state, for an oracle run beside this
+        one."""
         def c(x):
+            if isinstance(x, dict):
+                return {k: c(v) for k, v in x.items()}
             if isinstance(x, (list, tuple)):
                 return type(x)(c(y) for y in x)
             return x.clone()
@@ -133,8 +151,12 @@ class ServeState(NamedTuple):
 
 
 def _n_groups(cfg: ArchConfig) -> int:
-    """Layers of the decoder-only families (JAX also counts the ssm,
-    hybrid and encdec groups, which wait for item 9)."""
+    if cfg.family == "ssm":
+        return cfg.n_layers // 2
+    if cfg.family == "hybrid":
+        return 6
+    if cfg.family == "encdec":
+        return cfg.dec_layers
     return cfg.n_layers
 
 
@@ -149,24 +171,65 @@ def _uses_expert_plane(cfg: ArchConfig) -> bool:
     return bool(cfg.atlas_experts and cfg.moe_experts)
 
 
+def _mamba_state(cfg: ArchConfig, B: int, n: int, dev) -> dict:
+    """``n`` Mamba2 blocks' zero conv and SSM states."""
+    d_inner = 2 * cfg.d_model
+    H, N = d_inner // 64, cfg.ssm_state
+    return {"conv": [torch.zeros((B, 3, d_inner + 2 * N), dtype=cfg.dtype,
+                                 device=dev) for _ in range(n)],
+            "ssm": [torch.zeros((B, H, N, 64), dtype=torch.float32,
+                                device=dev) for _ in range(n)]}
+
+
 def init_decode_state(cfg: ArchConfig, shape: ShapeConfig, shards: int = 1,
-                      device="cuda") -> ServeState:
-    """Zero-initialized serve state on ``device``."""
-    _check_family(cfg)
+                      enc_len: int = 0, device="cuda") -> ServeState:
+    """Zero-initialized serve state on ``device``.  ``enc_len`` is the
+    encoder memory's length (encdec; ``max(S // 4, 128)`` if 0)."""
     dev = st.resolve_device(device)
+    B, S = shape.global_batch, shape.seq_len
     L = _n_groups(cfg)
+    fam = cfg.family
+    lengths = torch.zeros((B,), dtype=torch.int32, device=dev)
+
+    if fam == "ssm":   # xLSTM: recurrent states, O(1) in S
+        H = cfg.n_heads
+        dh_m = 2 * cfg.d_model // H
+        dh_s = cfg.d_model // H
+
+        def one():
+            return {
+                "mlstm_s": torch.zeros((B, H, dh_m, dh_m),
+                                       dtype=torch.float32, device=dev),
+                "mlstm_n": torch.zeros((B, H, dh_m, 1), dtype=torch.float32,
+                                       device=dev),
+                "slstm": ssm_lib.slstm_init_state(B, H, dh_s, dev),
+            }
+        return ServeState(lengths, [one() for _ in range(L)], ())
+
     kvc, mode = kv_plan(cfg, shape, shards)
-    if mode == "sparse":
-        kv = [[kvplane.init(kvc, dev) for _ in range(shards)]
+
+    def plane():
+        if mode == "sparse":
+            return [kvplane.init(kvc, dev) for _ in range(shards)]
+        return kvplane.init(kvc, dev)
+
+    if fam == "hybrid":   # zamba2: per group 5 Mamba2 states + its KV plane
+        kv = [dict(_mamba_state(cfg, B, 5, dev), attn_kv=plane())
               for _ in range(L)]
-    else:
-        kv = [kvplane.init(kvc, dev) for _ in range(L)]
+        return ServeState(lengths, kv, _mamba_state(cfg, B, 2, dev))
+
+    kv = [plane() for _ in range(L)]
+    if fam == "encdec":
+        senc = enc_len or max(S // 4, 128)
+        cross = {n: [torch.zeros((B, senc, cfg.n_kv_heads, cfg.hd),
+                                 dtype=cfg.dtype, device=dev)
+                     for _ in range(L)] for n in ("k", "v")}
+        return ServeState(lengths, kv, cross)
+
     extra = ()
     if _uses_expert_plane(cfg):
         epc = _expert_cfg(cfg)
         extra = [expertplane.init(epc, dev) for _ in range(L)]
-    lengths = torch.zeros((shape.global_batch,), dtype=torch.int32,
-                          device=dev)
     return ServeState(lengths, kv, extra)
 
 
@@ -219,17 +282,90 @@ def _plane_attend(cfg, kvc, gp, x2d, kv, lengths, mode):
     return out, kv
 
 
+def _mamba_run(cfg, blocks, st, x):
+    """x through Mamba2 blocks ``blocks`` with their states ``st``
+    (``conv``/``ssm`` lists); returns x and the new states."""
+    conv, ssm = [], []
+    for p, c, s in zip(blocks, st["conv"], st["ssm"]):
+        x, (c, s) = ssm_lib.mamba2_block(p, x, cfg, (c, s), chunk=1)
+        conv.append(c)
+        ssm.append(s)
+    return x, {"conv": conv, "ssm": ssm}
+
+
 def decode_step(cfg: ArchConfig, shape: ShapeConfig, shards: int = 1, *,
                 kernel_impl: str = "auto", fetch_mode: str = "batch"):
     """Build the serve step: (params, state, tokens [B] int) ->
     (state, logits [B, vocab_padded] f32).  ``kernel_impl="ref"`` runs
     every kernel's plain version (the comparison path); ``fetch_mode``
     picks the expert plane's fetch executor."""
-    _check_family(cfg)
-    if cfg.moe_experts and not _uses_expert_plane(cfg):
-        raise _unported("decode through the dropping MoE (mixtral)")
+    fam = cfg.family
+    B = shape.global_batch
     kvc, mode = kv_plan(cfg, shape, shards)
-    kvc = dataclasses.replace(kvc, kernel_impl=kernel_impl)
+    if kvc is not None:
+        kvc = dataclasses.replace(kvc, kernel_impl=kernel_impl)
+
+    if fam == "ssm":   # xLSTM
+        def step(params, state: ServeState, tokens):
+            x = _embed_tokens(cfg, params, tokens)
+            kv = []
+            for gp, gs in zip(params["blocks"], state.kv):
+                x, (s_m, n_m) = ssm_lib.mlstm_block(
+                    gp["mlstm"], x, cfg, (gs["mlstm_s"], gs["mlstm_n"]),
+                    chunk=1)
+                x, s_s = ssm_lib.slstm_block(gp["slstm"], x, cfg,
+                                             gs["slstm"])
+                kv.append({"mlstm_s": s_m, "mlstm_n": n_m, "slstm": s_s})
+            return (ServeState(state.lengths + 1, kv, state.extra),
+                    _logits(cfg, params, x))
+        return step
+
+    if fam == "hybrid":   # zamba2
+        def step(params, state: ServeState, tokens):
+            x = _embed_tokens(cfg, params, tokens)
+            lengths = state.lengths
+            sp = params["shared_attn"]
+            kv = []
+            for gp, gs in zip(params["blocks"], state.kv):
+                x, new = _mamba_run(cfg, gp["mamba"], gs, x)
+                h = rms_norm(x, sp["ln1"])
+                o, _ = _plane_attend(cfg, kvc, sp["attn"], h, gs["attn_kv"],
+                                     lengths, mode)
+                x = x + o
+                h = rms_norm(x, sp["ln2"])
+                x = x + mlp_lib.mlp(sp["mlp"], h)
+                kv.append(dict(new, attn_kv=gs["attn_kv"]))
+            x, tail = _mamba_run(cfg, params["tail"], state.extra, x)
+            return (ServeState(lengths + 1, kv, tail),
+                    _logits(cfg, params, x))
+        return step
+
+    if fam == "encdec":
+        def step(params, state: ServeState, tokens):
+            x = _embed_tokens(cfg, params, tokens)
+            lengths = state.lengths
+            cross = state.extra
+            for i, gp in enumerate(params["dec_blocks"]):
+                h = rms_norm(x, gp["ln1"])
+                o, _ = _plane_attend(cfg, kvc, gp["self_attn"], h,
+                                     state.kv[i], lengths, "dense")
+                x = x + o
+                # cross attention against the (static) encoder memory
+                h = rms_norm(x, gp["lnx"])
+                q = dense(h, gp["cross_attn"]["wq"]).reshape(
+                    B, 1, cfg.n_heads, cfg.hd)
+                o = attn_lib.full_attention(q, cross["k"][i], cross["v"][i],
+                                            causal=False)
+                o = dense(o.reshape(B, 1, cfg.n_heads * cfg.hd),
+                          gp["cross_attn"]["wo"])
+                x = x + o
+                h = rms_norm(x, gp["ln2"])
+                x = x + mlp_lib.mlp(gp["mlp"], h)
+            return (ServeState(lengths + 1, state.kv, cross),
+                    _logits(cfg, params, x))
+        return step
+
+    # decoder-only attention families (dense / moe / vlm)
     epc = None
     if _uses_expert_plane(cfg):
         epc = dataclasses.replace(_expert_cfg(cfg), kernel_impl=kernel_impl,
@@ -250,6 +386,12 @@ def decode_step(cfg: ArchConfig, shape: ShapeConfig, shards: int = 1, *,
                                                 mp["router"], h[:, 0],
                                                 mp["wi"], mp["wg"], mp["wo"])
                 x = x + o2d[:, None, :]
+            elif cfg.moe_experts:
+                # the dropping MoE at its default capacity factor, as JAX's
+                # decode calls it (not cfg.moe_capacity)
+                o, _aux = mlp_lib.moe(gp["moe"], h, n_experts=cfg.moe_experts,
+                                      topk=cfg.moe_topk)
+                x = x + o
             else:
                 x = x + mlp_lib.mlp(gp["mlp"], h)
         logits = _logits(cfg, params, x)

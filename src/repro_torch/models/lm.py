@@ -1,13 +1,21 @@
 """Decoder-only LM parameters (port of ``repro.models.lm``): the block
-definitions of the ``dense``, ``moe`` and ``vlm`` families and the model's
-parameter tree.  ``forward`` and ``loss_fn`` (training and prefill) and the
-``ssm``/``hybrid`` blocks wait for ROADMAP Queue 1 item 9.
+definitions of every decoder-only family and the model's parameter tree.
+
+Layers come in repeating groups: one attention + MLP (or MoE) layer for
+``dense``, ``moe`` and ``vlm``; (mLSTM, sLSTM) for xLSTM (``ssm``); five
+Mamba2 blocks and one application of the shared attention block for zamba2
+(``hybrid``), whose shared block and two tail Mamba2 blocks live outside
+the groups.  ``forward`` and ``loss_fn`` (training and prefill) wait for
+ROADMAP Queue 1 item 4.
 """
 from __future__ import annotations
+
+import dataclasses
 
 from ..configs import ArchConfig
 from . import attention as attn
 from . import mlp as mlp_lib
+from . import ssm
 from .common import DP, TP, ParamDef, stack_layers
 
 
@@ -32,12 +40,24 @@ def _attn_mlp_defs(cfg: ArchConfig):
 
 
 def group_defs(cfg: ArchConfig) -> tuple[dict, int, dict]:
-    """Returns (per-layer group defs, n_groups, shared_defs)."""
-    if cfg.family in ("dense", "moe", "vlm"):
+    """Returns (per-group defs, n_groups, shared_defs)."""
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
         return _attn_mlp_defs(cfg), cfg.n_layers, {}
-    raise NotImplementedError(
-        f"the {cfg.family!r} family's blocks are not ported yet: ROADMAP "
-        f"Queue 1, item 9")
+    if fam == "ssm":          # xLSTM: alternating mLSTM / sLSTM
+        g = {
+            "mlstm": ssm.mlstm_defs(cfg.d_model, cfg.n_heads, cfg.dtype),
+            "slstm": ssm.slstm_defs(cfg.d_model, cfg.n_heads, cfg.dtype),
+        }
+        return g, cfg.n_layers // 2, {}
+    if fam == "hybrid":       # zamba2: 6 groups of (5 mamba2 + shared attn)
+        mamba = ssm.mamba2_defs(cfg.d_model, cfg.ssm_state, cfg.dtype)
+        g = {"mamba": stack_layers(mamba, 5)}
+        shared = {"shared_attn": _attn_mlp_defs(
+            dataclasses.replace(cfg, moe_experts=0)),
+            "tail": stack_layers(mamba, 2)}
+        return g, 6, shared
+    raise ValueError(fam)
 
 
 def model_defs(cfg: ArchConfig) -> dict:

@@ -50,7 +50,8 @@ def test_port_package_is_complete():
                 "core/expertplane.py", "models/common.py",
                 "models/attention.py", "models/mlp.py", "models/lm.py",
                 "models/api.py", "configs/__init__.py",
-                "core/shardplane.py", "launch/mesh.py"):
+                "core/shardplane.py", "launch/mesh.py", "models/ssm.py",
+                "models/encdec.py"):
         assert (port / mod).exists(), mod
         assert (jaxpkg / mod).exists(), mod
     for src in ("gather_rows.cu", "compact_pages.cu", "cat_decay.cu",
