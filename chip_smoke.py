@@ -130,6 +130,29 @@ Phases (any failure exits non-zero, with no result line):
 18. lmencdec  seamless-m4t-medium at full width, a seeded encoder memory of
               1,024 positions: as 13 (12 launches a step, pages split)
 Every paged_attention launch of 11 to 18 is on the tensor cores.
+19. trainattn chunked_attention forward and backward at llama3-8b's head
+              shapes (4,096 positions, chunks of 512; causal and a 1,024
+              window) against full_attention on the card (out, dq, dk, dv
+              within 1e-4 of the largest); fwd+bwd timed beside
+              scaled_dot_product_attention (not on the path)
+20. trainblock one llama3-8b block at full width over 512 positions,
+              forward and backward on the card and on the CPU from the
+              same parameters: output and every gradient within 1e-4
+21. trainfam  each of the 10 archs' smoke configs: the loss and every
+              gradient, then one make_train_step (AdamW; Adafactor for
+              kimi) on the card and on the CPU from the same parameters
+              and batch (the dropping MoE under remat, mLSTM/sLSTM, Mamba2,
+              the vision prefix, the encoder-decoder under autograd)
+22. train     llama3-8b at full width, 4 of its 32 layers, f32 (as the
+              launcher trains), batch 2 x 4,096 in 2 micro-batches: 8
+              timed steps and one profiled (ms/step, tokens/s, peak
+              memory, device operations and busy share, the FLOP bound),
+              then the same 8 steps through the orchestrator with async
+              checkpoints every 4 steps and a failure at step 5:
+              restarts=1, the resumed losses equal the uninterrupted run's
+23. prefill   the same model's prefill step (2 x 64 tokens) against the
+              64th logits of decode_step token by token through the dense
+              KV plane (paged_attention, 4 launches a token)
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA GPU and the repository's
@@ -139,6 +162,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -222,6 +246,42 @@ SSM_BATCH, SSM_CPU_SEQS, SSM_CPU_STEPS = 128, 2, 4
 SSM_F32_TOL = 1e-4
 LONG_SEQ, LONG_FROM = 524_288, 524_224
 ENC_LEN = 1024
+# the training path: [trainattn] chunked_attention at llama3-8b's head
+# shapes (one sequence of 4,096, chunks of 512, causal and a 1,024 window);
+# [trainblock] one llama3-8b block over 512 positions, the card against the
+# CPU; [trainfam] one train step of each arch's smoke config (48 positions,
+# 2 sequences, a constant lr of 1e-3), the card against the CPU (at 64
+# positions a chunk of xlstm's smoke recurrence sums its decays past 88,
+# exp overflows under the causal mask and the gradient, 0 x inf, is NaN in
+# the JAX package as in the port); [train]
+# llama3-8b at full width cut to 4 of its 32 layers (params and AdamW's
+# moments take 16 bytes a parameter: 30.8 GB at 4 layers), f32 as the
+# launcher trains, train_4k's 4,096 positions, batch 2 in 2 micro-batches,
+# 8 steps through the orchestrator with a checkpoint every 4 and a failure
+# at step 5; [prefill] the same model, 2 sequences of 64 tokens
+ATTN_SEQ, ATTN_CHUNK, ATTN_WINDOW = 4096, 512, 1024
+BLOCK_SEQ = 512
+FAM_SEQ, FAM_BATCH, FAM_LR = 48, 2, 1e-3
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 4, 4096, 2, 2
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 8, 4, 5
+PREFILL_BATCH, PREFILL_TOKENS = 2, 64
+# f32 on the card against f32 elsewhere (the CPU, the unchunked attention),
+# relative to the largest |value| of each tensor: outputs, gradients and
+# updated parameters; a smoke model's gradients (zamba2's 38 layers move
+# by up to 3.3e-4 of the largest under one ulp of parameter noise) and
+# gnorm; the loss (relative); a resumed run's losses (relative); the
+# prefill against token-by-token decode (rtol and atol, the tolerance
+# tests/test_models.py holds JAX's decode to)
+TRAIN_TOL, FAM_GRAD_TOL, FAM_LOSS_TOL = 1e-4, 1e-3, 1e-4
+RESUME_RTOL, PREFILL_TOL = 1e-5, 3e-3
+# AdamW's first step is lr x g / (|g| + eps) after clipping: lr x sign(g),
+# except near g = 0, where the slope is 1/eps and a sign flip moves the
+# update by 2 lr.  There a rounding of g moves the update by up to lr.  So
+# the updated parameters' check leaves out (and counts) the elements whose
+# gradient the card and the CPU agree on to less than this, relative to
+# the element's own |gradient|; for the rest a gradient error of e moves
+# the update by at most lr x e / 4 (every gradient is checked itself)
+FAM_GRAD_AGREE = 1e-3
 
 
 def log(msg: str) -> None:
@@ -3213,6 +3273,440 @@ def phase_lm_encdec(torch, ops, ref, configs, api, ep, card: str,
             "attention": attn}
 
 
+# --------------------------------------------------------------------------
+# the training path: [trainattn], [trainblock], [trainfam], [train], [prefill]
+# --------------------------------------------------------------------------
+
+def train_modules():
+    """The port's modules of the training path, as attributes of one
+    object."""
+    from repro_torch import configs, tree
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train
+    from repro_torch.models import api, attention, lm
+    from repro_torch.optim import optimizers, schedules
+    from repro_torch.runtime import orchestrator
+
+    class T:
+        pass
+    for mod in (configs, tree, synthetic, train, api, attention, lm,
+                optimizers, schedules, orchestrator):
+        setattr(T, mod.__name__.rsplit(".", 1)[-1], mod)
+    return T
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    got = got.detach().to(want.device)
+    top = float(want.detach().abs().max())
+    return float((got - want.detach()).abs().max()) / max(top, 1e-30)
+
+
+def phase_train_attn(torch, T, card: str) -> dict:
+    """chunked_attention forward and backward at llama3-8b's head shapes
+    against full_attention on the card (out, dq, dk, dv), causal and with a
+    1,024 window; its fwd+bwd time beside scaled_dot_product_attention's
+    (the same K/V heads repeated; for the record, not on the path)."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 20)
+    B, S, H, KVH, Dh = 1, ATTN_SEQ, LLAMA_HEADS, LLAMA_KV_HEADS, \
+        LLAMA_HEAD_DIM
+    q, k, v = (torch.randn(shape, generator=g, device=dev).requires_grad_()
+               for shape in ((B, S, H, Dh), (B, S, KVH, Dh), (B, S, KVH, Dh)))
+    ct = torch.randn((B, S, H, Dh), generator=g, device=dev)
+    qs = q.detach().transpose(1, 2).contiguous().requires_grad_()
+    ks, vs = (x.detach().repeat_interleave(H // KVH, dim=2).transpose(1, 2)
+              .contiguous().requires_grad_() for x in (k, v))
+    cts = ct.transpose(1, 2).contiguous()
+    pos = torch.arange(S, device=dev)
+    flops = 12 * S * S * H * Dh * B      # QK^T and PV: forward + 2x backward
+    bnd = flops / PEAK_F32 * 1e3
+    out = {}
+    for tag, window in (("causal", 0), ("window", ATTN_WINDOW)):
+        def run(fn, **kw):
+            o = fn(q, k, v, causal=True, window=window, **kw)
+            return (o,) + torch.autograd.grad(o, (q, k, v), ct)
+
+        def chunked():
+            return run(T.attention.chunked_attention, chunk_q=ATTN_CHUNK,
+                       chunk_k=ATTN_CHUNK)
+        errs = [rel_err(a, b) for a, b in zip(
+            chunked(), run(T.attention.full_attention))]
+        for name, e in zip(("out", "dq", "dk", "dv"), errs):
+            check(e <= TRAIN_TOL, f"[trainattn] {tag}: chunked_attention's "
+                                  f"{name} off full_attention's by {e:.3g} "
+                                  f"of the largest (tolerance {TRAIN_TOL})")
+        torch.cuda.empty_cache()
+        mask = None
+        if window:
+            mask = (pos[:, None] >= pos[None, :]) & (
+                pos[None, :] > pos[:, None] - window)
+
+        def lib():
+            o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                               is_causal=mask is None)
+            return torch.autograd.grad(o, (qs, ks, vs), cts)
+        ms = device_ms(torch, chunked, n=2, rounds=3)
+        lib_ms = device_ms(torch, lib, n=2, rounds=3)
+        log(f"[trainattn] {tag} (B {B}, S {S}, {H}/{KVH} heads, Dh {Dh}, "
+            f"chunks of {ATTN_CHUNK}, f32): out/dq/dk/dv within "
+            f"{max(errs):.3g} of the largest against full_attention "
+            f"(tolerance {TRAIN_TOL}); fwd+bwd {ms:.3f} ms (library "
+            f"scaled_dot_product_attention {lib_ms:.3f} ms, not on the path; "
+            f"bound {bnd:.3f} ms by operations, every chunk pair at "
+            f"{PEAK_F32 / 1e12:.0f} TFLOP/s) [{card}]")
+        out[tag] = {"ms": ms, "library_ms": lib_ms, "bound_ms": bnd,
+                    "max_rel_err": max(errs)}
+    del q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    return out
+
+
+def block_fwd_bwd(torch, T, cfg, gp, x, ct):
+    """One block's output and the gradients of its parameters and input
+    against the cotangent ``ct``."""
+    flat = T.tree.leaves(gp)
+    with torch.enable_grad():
+        live = [p.detach().requires_grad_() for p in flat]
+        xl = x.detach().requires_grad_()
+        S = x.shape[1]
+        pos = torch.arange(S, device=x.device).expand(x.shape[0], S)
+        out, _ = T.lm._group_fwd(cfg, {}, 0, T.tree.unflatten(gp, live), xl,
+                                 pos)
+        grads = torch.autograd.grad(out, live + [xl], ct)
+    return out.detach(), grads
+
+
+def phase_train_block(torch, T, card: str) -> None:
+    """One llama3-8b block at full width (attention through
+    chunked_attention, RoPE, the SwiGLU MLP), forward and backward over 512
+    positions on the card and on the CPU from the same parameters, input
+    and cotangent: the output, every parameter gradient and the input's
+    within 1e-4 of its largest |value|."""
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    cfg = T.configs.get_config("llama3-8b").scaled(n_layers=1,
+                                                  dtype=torch.float32)
+    gp = T.api.init_params(cfg, seed=SEED + 21, device=dev)["blocks"][0]
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 22)
+    x = torch.randn((1, BLOCK_SEQ, cfg.d_model), generator=g, device=dev)
+    ct = torch.randn((1, BLOCK_SEQ, cfg.d_model), generator=g, device=dev)
+    out_k, grads_k = block_fwd_bwd(torch, T, cfg, gp, x, ct)
+    t0 = time.time()
+    out_c, grads_c = block_fwd_bwd(torch, T, cfg, to_device(gp, cpu),
+                                   x.cpu(), ct.cpu())
+    cpu_s = time.time() - t0
+    names = ["_".join(map(str, p)) for p, _ in T.tree.flatten_with_path(gp)]
+    errs = {"out": rel_err(out_k, out_c)}
+    errs.update({n: rel_err(a, b) for n, a, b in zip(
+        names + ["x"], grads_k, grads_c)})
+    for n, e in errs.items():
+        check(e <= TRAIN_TOL, f"[trainblock] {n}: the card off the CPU by "
+                              f"{e:.3g} of the largest (tolerance "
+                              f"{TRAIN_TOL})")
+    ms = device_ms(torch, lambda: block_fwd_bwd(torch, T, cfg, gp, x, ct),
+                   n=2, rounds=3)
+    n_w = sum(p.numel() for p in T.tree.leaves(gp))
+    log(f"[trainblock] llama3-8b block ({n_w / 1e6:.1f}M parameters, f32), "
+        f"{BLOCK_SEQ} positions: output, {len(names)} parameter gradients "
+        f"and the input's within {max(errs.values()):.3g} of the largest on "
+        f"the card against the CPU (tolerance {TRAIN_TOL}; worst "
+        f"{max(errs, key=errs.get)}); fwd+bwd {ms:.3f} ms on the card, "
+        f"{cpu_s:.1f}s on the CPU [{card}]")
+    del gp, grads_k
+    torch.cuda.empty_cache()
+
+
+def jax_leaves(T, tree) -> list:
+    """[(name, tensor)] of a params-shaped tree in JAX's stacked layout
+    (per-layer lists stacked on leading axes), JAX's leaf order."""
+    return [("_".join(map(str, path)), s.value()) for path, s in
+            T.tree.flatten_with_path(T.optimizers.stacked(tree))]
+
+
+def phase_train_fam(torch, T, card: str) -> None:
+    """Every arch's smoke config (f32, remat as configured): the loss and
+    every gradient through value_and_grad, then one make_train_step with
+    the launcher's optimizer (Adafactor for kimi, AdamW otherwise) at a
+    constant lr, on the card and on the CPU from the same parameters and
+    batch (batch_for_step with the stub frontend inputs).  Leaves are
+    compared in JAX's stacked layout (a leaf is all layers of one
+    parameter), as the CPU tests compare them.  This reaches the dropping
+    MoE with capacity under remat, mLSTM/sLSTM, Mamba2, the vision prefix
+    and the encoder-decoder under autograd on CUDA."""
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    for arch in T.configs.ARCHS:
+        cfg = T.configs.get_smoke(arch).scaled(dtype=torch.float32)
+        pc = T.api.init_params(cfg, seed=SEED + 23, device=cpu)
+        dcfg = T.synthetic.DataConfig(vocab=cfg.vocab, seq_len=FAM_SEQ,
+                                      global_batch=FAM_BATCH, seed=SEED)
+        nb = T.synthetic.batch_for_step(
+            dcfg, 0, frontend=T.train.frontend_inputs(cfg, FAM_SEQ) or None)
+        bc = {k: torch.from_numpy(v) for k, v in nb.items()}
+        bk = to_device(bc, dev)
+        vg = T.tree.value_and_grad(T.api.loss(cfg))
+        lc, gc = vg(pc, bc)
+        lk, gk = vg(to_device(pc, dev), bk)
+        e_loss = abs(float(lk) - float(lc)) / abs(float(lc))
+        check(e_loss <= FAM_LOSS_TOL, f"[trainfam] {arch}: loss {float(lk)} "
+                                      f"on the card, {float(lc)} on the CPU")
+        gk_s, gc_s = jax_leaves(T, gk), jax_leaves(T, gc)
+        gerr = {n: rel_err(a, b) for (n, a), (_, b) in zip(gk_s, gc_s)}
+        n_bad = max(gerr, key=gerr.get)
+        check(gerr[n_bad] <= FAM_GRAD_TOL,
+              f"[trainfam] {arch}: gradient {n_bad} off the CPU's by "
+              f"{gerr[n_bad]:.3g} of the largest (tolerance {FAM_GRAD_TOL})")
+        if cfg.moe_experts:
+            check(all(float(b["moe"]["router"].abs().max()) > 0
+                      for b in gk["blocks"]),
+                  f"[trainfam] {arch}: a router gradient is zero")
+
+        opt_name = "adafactor" if arch.startswith("kimi") else "adamw"
+        opts = [T.optimizers.get_optimizer(
+            opt_name, lr=T.schedules.constant_schedule(FAM_LR))
+            for _ in range(2)]
+        res = []
+        for o, d, b in ((opts[0], cpu, bc), (opts[1], dev, bk)):
+            p = to_device(pc, d) if d.type == "cuda" else T.tree.tree_map(
+                torch.clone, pc)
+            step = T.api.make_train_step(cfg, o)
+            res.append(step(p, o.init(p), torch.zeros((), dtype=torch.int32,
+                                                      device=d), b))
+        (p_c, _, _, l_c, n_c), (p_k, _, _, l_k, n_k) = res
+        e_l = abs(float(l_k) - float(l_c)) / abs(float(l_c))
+        e_n = abs(float(n_k) - float(n_c)) / abs(float(n_c))
+        check(e_l <= FAM_LOSS_TOL and e_n <= FAM_GRAD_TOL,
+              f"[trainfam] {arch}: train step loss {float(l_k)} / "
+              f"{float(l_c)}, gnorm {float(n_k)} / {float(n_c)} (card / CPU)")
+        near, total, perr = 0, 0, 0.0
+        for (_, a), (_, b), (_, ga), (_, gb) in zip(
+                jax_leaves(T, p_k), jax_leaves(T, p_c), gk_s, gc_s):
+            keep = torch.ones_like(b, dtype=torch.bool)
+            if opt_name == "adamw":
+                keep = (ga.cpu() - gb).abs() <= FAM_GRAD_AGREE * gb.abs()
+                near += int((~keep).sum())
+            total += b.numel()
+            top = float(b.abs().max())
+            d = (a.cpu() - b).abs()[keep]
+            e = float(d.max()) / max(top, 1e-30) if d.numel() else 0.0
+            perr = max(perr, e)
+        check(perr <= TRAIN_TOL, f"[trainfam] {arch}: updated parameters "
+                                 f"off the CPU's by {perr:.3g} of the "
+                                 f"largest (tolerance {TRAIN_TOL})")
+        log(f"[trainfam] {arch} ({cfg.family}, {opt_name}): loss "
+            f"{float(lk):.5f}, rel err {e_loss:.2g}; gradients within "
+            f"{gerr[n_bad]:.2g} ({n_bad}); step gnorm {float(n_k):.4f} rel "
+            f"err {e_n:.2g}; updated parameters within {perr:.2g} ({near} of "
+            f"{total} elements left out: their gradients part by more than "
+            f"{FAM_GRAD_AGREE} of their own size)")
+    torch.cuda.empty_cache()
+
+
+def train_flops(cfg, params) -> tuple[float, dict]:
+    """The step's operations: 6 N T for the parameters the step multiplies
+    (every block matrix and lm_head; the embedding is an index), the
+    remat's second forward of the blocks (2 N_blocks T), and the
+    attention's score and value products in forward, recompute and
+    backward over every chunk pair (16 S^2 H Dh a layer and sequence)."""
+    blk = sum(params["blocks"][0]["attn"][w].numel()
+              for w in ("wq", "wk", "wv", "wo")) + sum(
+        params["blocks"][0]["mlp"][w].numel() for w in ("wi", "wg", "wo"))
+    n_blocks = blk * cfg.n_layers
+    n_head = params["lm_head"].numel()
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    attn = 16 * TRAIN_SEQ ** 2 * cfg.n_heads * cfg.hd * cfg.n_layers \
+        * TRAIN_BATCH
+    parts = {"6NT": 6 * (n_blocks + n_head) * tok,
+             "remat": 2 * n_blocks * tok, "attention": attn}
+    return float(sum(parts.values())), parts
+
+
+def phase_train(torch, ops, T, card: str) -> dict:
+    """llama3-8b at full width, 4 of its 32 layers, f32, through the
+    launcher's pieces (launch.train.build, the orchestrator, async
+    checkpoints): run A, 8 uninterrupted steps, timed one by one, and one
+    more under the profiler; run B, the same 8 steps from the same state
+    through the Orchestrator with a checkpoint every 4 and a failure at
+    step 5 (restarts=1): the losses of steps 4-7 after the resume, and of
+    steps 0-4 before it, equal to run A's."""
+    import shutil
+    dev = torch.device("cuda")
+    cfg = T.configs.get_config("llama3-8b").scaled(n_layers=TRAIN_LAYERS,
+                                                  dtype=torch.float32)
+    opt = T.optimizers.get_optimizer(
+        "adamw", lr=T.optimizers.cosine_schedule(3e-4, 20, TRAIN_STEPS))
+    dcfg = T.synthetic.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=SEED)
+
+    def batch_fn(step):
+        return T.synthetic.batch_for_step(dcfg, step)
+    step_fn = T.train.build(cfg, opt, TRAIN_ACCUM)
+
+    def init_state():
+        params = T.api.init_params(cfg, seed=SEED + 24, device=dev)
+        return (params, opt.init(params),
+                torch.zeros((), dtype=torch.int32, device=dev))
+
+    # ---- run A: uninterrupted, timed ------------------------------------
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state()
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in T.tree.leaves(state[0]))
+    st_bytes = nbytes(list(state[:2]))
+    flops, parts = train_flops(cfg, state[0])
+    bnd = flops / PEAK_F32 * 1e3
+    log(f"[train] llama3-8b {cfg.n_layers} of 32 layers at full width "
+        f"(d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}), f32: {n_params / 1e9:.3f} B "
+        f"parameters, params + AdamW moments {st_bytes / 1e9:.2f} GB; "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_ACCUM} micro-batches, "
+        f"remat {cfg.remat}; set up in {time.time() - t0:.1f}s")
+    ops.reset_launch_counts()
+    losses_a, ms = [], []
+    for s in range(TRAIN_STEPS):
+        batch = batch_fn(s)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        losses_a.append(float(m["loss"]))
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses_a), f"[train] losses "
+                                                   f"{losses_a}")
+    check(int(state[2]) == TRAIN_STEPS, "[train] step counter")
+    step_ms = statistics.median(ms[1:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    log(f"[train] run A: {TRAIN_STEPS} steps, {step_ms:.1f} ms per step "
+        f"(median after the first; first {ms[0]:.1f} ms), {tok_s:,.0f} "
+        f"tokens/s, peak memory allocated {peak / 1e9:.2f} GB; losses "
+        f"{[round(x, 5) for x in losses_a]}; kernel launches {launches} "
+        f"(the training path runs no hand-written kernel) [{card}]")
+    box = [state]
+
+    def one():
+        box[0], _ = step_fn(box[0], batch_fn(TRAIN_STEPS))
+    wall, busy, ops_n, rows = profiled(torch, one, 1)
+    log(f"[train] profile of one step: wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy * 1e3:.1f} ms ({100 * busy / wall:.1f}% of the profiled wall, "
+        f"{100 * busy * 1e3 / step_ms:.1f}% of the median step), "
+        f"{ops_n:.0f} device operations [{card}]")
+    for dev_us, count, key in sorted(rows, reverse=True)[:8]:
+        log(f"[train]   {dev_us / 1e3:9.1f} ms {count:7d}x  {key[:90]}")
+    log(f"[train] step bound {bnd:.1f} ms by operations: {flops / 1e12:.2f} "
+        f"TFLOP ({', '.join(f'{k} {v / 1e12:.2f}' for k, v in parts.items())}"
+        f") at {PEAK_F32 / 1e12:.0f} TFLOP/s f32; the step takes "
+        f"{step_ms / bnd:.2f}x the bound [{card}]")
+    del state, box
+    torch.cuda.empty_cache()
+
+    # ---- run B: the orchestrator, a failure at step 5 --------------------
+    torch.cuda.reset_peak_memory_stats()
+    init = init_state()
+    ckdir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    losses_b = []
+
+    def logged(st, batch):
+        st, m = step_fn(st, batch)
+        losses_b.append((int(st[2]) - 1, float(m["loss"])))
+        return st, m
+    O = T.orchestrator
+    orch = O.Orchestrator(
+        O.OrchestratorConfig(ckpt_dir=str(ckdir),
+                             ckpt_every=TRAIN_CKPT_EVERY, keep=1),
+        logged, batch_fn, injector=O.FailureInjector([TRAIN_FAIL_AT]))
+    t1 = time.time()
+    state = orch.run(init, TRAIN_STEPS)
+    wall_b = time.time() - t1
+    peak_b = torch.cuda.max_memory_allocated()
+    m = orch.metrics
+    steps = [s for s, _ in losses_b]
+    want = list(range(TRAIN_FAIL_AT)) + list(
+        range(TRAIN_CKPT_EVERY, TRAIN_STEPS))
+    check(m["restarts"] == 1 and steps == want,
+          f"[train] run B: restarts={m['restarts']}, steps {steps}")
+    check(int(state[2]) == TRAIN_STEPS, "[train] run B's step counter")
+    rel = [abs(lb - losses_a[s]) / abs(losses_a[s]) for s, lb in losses_b]
+    check(max(rel) <= RESUME_RTOL,
+          f"[train] run B's losses off run A's by {max(rel):.3g} (relative; "
+          f"tolerance {RESUME_RTOL}): {losses_b} against {losses_a}")
+    log(f"[train] run B: done: steps={m['steps']} restarts={m['restarts']} "
+        f"stragglers={m['stragglers']} final_loss={losses_b[-1][1]:.4f}; "
+        f"{wall_b:.1f}s with {sum(m['step_times']):.1f}s in steps (the "
+        f"rest: 3 checkpoints of {st_bytes / 1e9:.1f} GB, one restore); "
+        f"peak memory allocated {peak_b / 1e9:.2f} GB (the caller's initial "
+        f"state beside the trained copy, as in JAX); "
+        f"the losses of steps {TRAIN_CKPT_EVERY}-{TRAIN_STEPS - 1} after "
+        f"the resume and of steps 0-{TRAIN_FAIL_AT - 1} before it within "
+        f"{max(rel):.3g} of run A's (relative; tolerance {RESUME_RTOL}) "
+        f"[{card}]")
+    del state, init
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "tokens_per_s": tok_s, "peak_bytes": peak,
+            "bound_ms": bnd, "flops": flops, "busy_share": busy / step_ms
+            * 1e3, "launches": launches}
+
+
+def phase_prefill(torch, ops, T, card: str) -> dict:
+    """make_prefill_step's last-token logits for llama3-8b at full width, 4
+    layers, f32, 2 sequences of 64 seeded tokens, against the 64th logits
+    of decode_step run token by token through the dense KV plane (its
+    paged_attention kernel, 4 launches a token): rtol and atol 3e-3."""
+    dev = torch.device("cuda")
+    cfg = T.configs.get_config("llama3-8b").scaled(n_layers=TRAIN_LAYERS,
+                                                  dtype=torch.float32)
+    params = T.api.init_params(cfg, seed=SEED + 25, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 26)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_TOKENS),
+                           generator=g, device=dev, dtype=torch.int32)
+    prefill = T.api.make_prefill_step(cfg)
+    prefill(params, {"tokens": tokens})
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    pre_launches = ops.launch_counts()
+    shape = T.configs.ShapeConfig("prefill", PREFILL_TOKENS, PREFILL_BATCH,
+                                  "decode")
+    state = T.api.init_decode_state(cfg, shape, device=dev)
+    step = T.api.decode_step(cfg, shape)
+    ops.reset_launch_counts()
+    for t in range(PREFILL_TOKENS):
+        state, logits = step(params, state, tokens[:, t])
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = cfg.n_layers * PREFILL_TOKENS
+    check(launches["paged_attention"] == want,
+          f"[prefill] paged_attention launched {launches['paged_attention']} "
+          f"times decoding {PREFILL_TOKENS} tokens through {cfg.n_layers} "
+          f"layers ({want} wanted)")
+    check(sum(pre_launches.values()) == 0,
+          f"[prefill] the prefill step launched {pre_launches}")
+    diff = (got - logits).abs()
+    ok = bool((diff <= PREFILL_TOL + PREFILL_TOL * logits.abs()).all())
+    err = rel_err(got, logits)
+    check(ok, f"[prefill] prefill logits off the decoded ones by "
+              f"{float(diff.max()):.3g} (rtol and atol {PREFILL_TOL})")
+    log(f"[prefill] llama3-8b {cfg.n_layers} layers f32, {PREFILL_BATCH} x "
+        f"{PREFILL_TOKENS} tokens: the prefill step's last-token logits "
+        f"within {float(diff.max()):.3g} of decode_step's 64th (rtol and "
+        f"atol {PREFILL_TOL}; {err:.3g} of the largest); prefill "
+        f"{pre_ms:.1f} ms; decode launched paged_attention {want} times "
+        f"({cfg.n_layers} a token, f32: CUDA cores) [{card}]")
+    del params, state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_rel_err": err, "prefill_ms": pre_ms}
+
+
 def port_modules():
     """The port's modules the phases use, as attributes of one object."""
     import numpy as np
@@ -3437,10 +3931,28 @@ def main() -> int:
                           rate)
     encd = phase_lm_encdec(torch, ops, ref, configs, api, expertplane, card,
                            rate)
+    T = train_modules()
+    t_train = time.time()
+    tattn = phase_train_attn(torch, T, card)
+    phase_train_block(torch, T, card)
+    phase_train_fam(torch, T, card)
+    trn = phase_train(torch, ops, T, card)
+    pre = phase_prefill(torch, ops, T, card)
+    log(f"[train] summary: llama3-8b {TRAIN_LAYERS} layers f32, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: {trn['step_ms']:.1f} ms per step, "
+        f"{trn['tokens_per_s']:,.0f} tokens/s, peak "
+        f"{trn['peak_bytes'] / 1e9:.2f} GB, device busy "
+        f"{100 * trn['busy_share']:.1f}% of the step, bound "
+        f"{trn['bound_ms']:.1f} ms ({trn['flops'] / 1e12:.2f} TFLOP at "
+        f"f32); chunked attention "
+        f"fwd+bwd {tattn['causal']['ms']:.2f} ms causal (SDPA "
+        f"{tattn['causal']['library_ms']:.2f} ms); the training phases took "
+        f"{time.time() - t_train:.1f}s [{card}]")
     rest = {"lmmoe": moe["launches"], "lmmoe_window": moe["window_launches"],
             "lmssm": ssm["launches"], "lmhybrid": hyb["launches"],
             "lmhybrid_long": hyb["long_launches"],
-            "lmencdec": encd["launches"]}
+            "lmencdec": encd["launches"], "train": trn["launches"],
+            "prefill": pre["launches"]}
     for k in kernels:
         if k["name"] in ("page_scores", "paged_attention", "cat_update"):
             # cat_update is on no runtime path, in the JAX package either

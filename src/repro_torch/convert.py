@@ -11,10 +11,12 @@ plane's state to the port this way.
 ``kv_state_to_numpy``/``kv_state_from_numpy`` do the same for the KV
 plane's ``KVPlaneState``, a list of shard states standing for JAX's
 stacked leading shard axis; ``expert_state_*`` for the expert plane, and
-``params_from_numpy``/``serve_state_*`` for the model's params and serve
-state of every family, whose per-layer lists stand for JAX's stacked layer
-axes (a hybrid group's nested ``mamba`` list for the second axis of JAX's
-``[6, 5, ...]`` leaves).
+``params_from_numpy``/``params_to_numpy``/``serve_state_*`` for the
+model's params and serve state of every family, whose per-layer lists
+stand for JAX's stacked layer axes (a hybrid group's nested ``mamba`` list
+for the second axis of JAX's ``[6, 5, ...]`` leaves);
+``opt_state_to_numpy``/``opt_state_from_numpy`` for the optimizers' state
+(AdamW's moments, Adafactor's factored statistics).
 """
 from __future__ import annotations
 
@@ -177,6 +179,30 @@ def params_from_numpy(cfg, jax_params, device="cuda") -> dict:
     list of per-layer dicts, each leaf in its JAX dtype."""
     dev = st.resolve_device(device)
     return _carry(api.model_defs(cfg), jax_params, dev)
+
+
+def params_to_numpy(cfg, torch_params) -> dict:
+    """The port's params in the JAX package's layout: every per-layer list
+    stacked on a leading axis (nested lists on several), as numpy arrays
+    (bf16 as f32)."""
+    return _tree_np(torch_params, None)
+
+
+def opt_state_to_numpy(cfg, opt_state) -> dict:
+    """An optimizer state in JAX's layout: AdamW's ``mu``/``nu`` stacked
+    as the params are; Adafactor's ``f`` (already JAX's stacked layout,
+    ``optim.optimizers.stacked``) as numpy."""
+    return _tree_np(opt_state, None)
+
+
+def opt_state_from_numpy(cfg, d, device="cuda") -> dict:
+    """A port optimizer state from JAX's (AdamW's ``{"mu", "nu"}``, in the
+    params' per-layer layout; Adafactor's ``{"f"}``, kept stacked)."""
+    dev = st.resolve_device(device)
+    if "f" in d:
+        return {"f": _tree(d["f"], lambda a: _tensor(a, dev))}
+    defs = api.model_defs(cfg)
+    return {k: _carry(defs, d[k], dev) for k in ("mu", "nu")}
 
 
 def _expert_np(s: ep.ExpertPlaneState) -> dict:

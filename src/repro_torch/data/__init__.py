@@ -1,1 +1,1 @@
-"""Workload generators (numpy only)."""
+"""Workload generators and the training input pipeline (numpy and a thread)."""

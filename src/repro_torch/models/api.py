@@ -1,6 +1,13 @@
-"""Model API, the decode half (port of ``repro.models.api``).
+"""Model API (port of ``repro.models.api``): one surface over all
+families for the launchers, the trainer and the serving engine.
 
   * ``model_defs(cfg)`` / ``init_params``
+  * ``loss(cfg)``                       — train/prefill forward + loss
+  * ``make_train_step(cfg, opt)``       — (params, opt_state, step, batch)
+                                          -> (params, opt_state, step + 1,
+                                          loss, gnorm)
+  * ``make_prefill_step(cfg)``          — (params, batch) -> last-token
+                                          logits
   * ``init_decode_state(cfg, shape)``   — concrete serve state
   * ``decode_step(cfg, shape)``         — (params, state, tokens) ->
                                           (state, logits)
@@ -12,9 +19,11 @@ states; zamba2 (``hybrid``), whose shared attention block attends through
 each group's own dense or sparse KV plane; and the encoder-decoder
 (``encdec``), self-attention through the dense KV plane and cross attention
 against the encoder memory held in the state.  A ``vlm``'s vision frontend
-enters only the forward (prefill and training) path, which the port does
-not have yet: decode never reads ``patch_proj``, as in JAX.  The training
-and prefill steps wait for ROADMAP Queue 1 item 4.
+enters only the forward (prefill and training) path: decode never reads
+``patch_proj``, as in JAX.  The train step's gradients come from
+``torch.autograd`` (``tree.value_and_grad``) where JAX's come from
+``jax.value_and_grad``; its optimizers (``optim``) update the parameters
+and their state in place and return them.
 
 Where the port departs from the JAX form, and why:
 
@@ -28,23 +37,25 @@ Where the port departs from the JAX form, and why:
   ``lengths`` and new recurrent and conv state tensors (JAX's are new
   arrays too; writing them back in place would cost one more pass over
   xLSTM's matrix memory each step).
-* **The embedding is indexed.**  JAX multiplies a one-hot matrix into the
-  embedding; each output has a single nonzero term, so ``embed[tokens]``
-  gives the same bits without reading the whole table each step.  The
-  scale ``sqrt(d_model)`` is a weakly typed Python float in JAX, rounded to
-  the activations' dtype before the multiply, so the port rounds it too.
+* **The embedding is indexed** (``lm.embed_tokens``).  JAX multiplies a
+  one-hot matrix into the embedding; each output has a single nonzero
+  term, so a lookup gives the same bits without reading the whole table
+  each step.  The scale ``sqrt(d_model)`` is a weakly typed Python float
+  in JAX, rounded to the activations' dtype before the multiply, so the
+  port rounds it too.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
-from typing import Any, NamedTuple
+import functools
+from typing import Any, Callable, NamedTuple
 
 import torch
 
 from ..configs import ArchConfig, ShapeConfig
 from ..core import expertplane, kvplane
 from ..core import state as st
+from ..tree import value_and_grad
 from . import attention as attn_lib
 from . import encdec as encdec_lib
 from . import lm as lm_lib
@@ -72,6 +83,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     return _init(model_defs(cfg), g, dev)
+
+
+def loss(cfg: ArchConfig) -> Callable:
+    if cfg.family == "encdec":
+        return functools.partial(encdec_lib.loss_fn, cfg)
+    return functools.partial(lm_lib.loss_fn, cfg)
 
 
 # --------------------------------------------------------------------------
@@ -238,11 +255,7 @@ def init_decode_state(cfg: ArchConfig, shape: ShapeConfig, shards: int = 1,
 # --------------------------------------------------------------------------
 
 def _embed_tokens(cfg, params, tokens):
-    embed = params["embed"]
-    x = embed[tokens.long()]
-    scale = torch.full((), math.sqrt(cfg.d_model), dtype=embed.dtype,
-                       device=embed.device)
-    return (x * scale)[:, None, :]                         # [B, 1, d]
+    return lm_lib.embed_tokens(cfg, params["embed"], tokens)[:, None, :]
 
 
 def _logits(cfg, params, x):
@@ -397,4 +410,43 @@ def decode_step(cfg: ArchConfig, shape: ShapeConfig, shards: int = 1, *,
         logits = _logits(cfg, params, x)
         return ServeState(lengths + 1, state.kv, state.extra), logits
 
+    return step
+
+
+# --------------------------------------------------------------------------
+# step builders (train / prefill)
+# --------------------------------------------------------------------------
+
+def make_train_step(cfg: ArchConfig, opt):
+    """(params, opt_state, step, batch) -> (params, opt_state, step + 1,
+    loss, gnorm); ``opt.update`` writes the new parameters and optimizer
+    state into the tensors it was given."""
+    vg = value_and_grad(loss(cfg))
+
+    def train_step(params, opt_state, step, batch):
+        lv, grads = vg(params, batch)
+        new_params, new_opt, gnorm = opt.update(grads, opt_state, params,
+                                                step)
+        return new_params, new_opt, step + 1, lv, gnorm
+
+    return train_step
+
+
+def make_prefill_step(cfg: ArchConfig):
+    """Prefill: the full forward, the last token's logits [B, vocab_padded]
+    (the continuation's input)."""
+    if cfg.family == "encdec":
+        @torch.no_grad()
+        def step(params, batch):
+            enc_out = encdec_lib.encode(cfg, params, batch["frames"])
+            logits = encdec_lib.decode_train(cfg, params, batch["tokens"],
+                                             enc_out)
+            return logits[:, -1]
+        return step
+
+    @torch.no_grad()
+    def step(params, batch):
+        logits, _ = lm_lib.forward(cfg, params, batch["tokens"],
+                                   batch.get("patches"))
+        return logits[:, -1]
     return step

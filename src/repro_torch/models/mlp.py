@@ -5,8 +5,10 @@ kimi-k2 decodes its experts through the expert plane
 (``core.expertplane.moe_decode``); mixtral decodes through ``moe``, the
 MaxText-style dropping formulation (top-k routing, a stable sort by
 expert, capacity-bounded dispatch into per-expert buffers, batched expert
-products, weighted combine).  The same function is the MoE half of
-training (ROADMAP Queue 1, item 4).
+products, weighted combine).  The same function is the MoE layer of the
+training forward (``models.lm``), at ``cfg.moe_capacity``; its router's
+gradient flows through the sorted probabilities (``stable_order``'s
+values), as JAX's flows through ``lax.top_k``'s.
 """
 from __future__ import annotations
 

@@ -25,6 +25,14 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def _const(c: float, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d f32 constant on ``like``'s device.  ``torch.maximum`` and
+    ``torch.minimum`` against it split a tie's gradient in half, as JAX's
+    ``jnp.maximum``/``jnp.minimum`` do (``torch.clamp`` passes it whole):
+    an sLSTM's normalizer is exactly 1 at its first step."""
+    return torch.full((), c, dtype=torch.float32, device=like.device)
+
+
 def _scale(x: torch.Tensor, c: float) -> torch.Tensor:
     """x / c with the Python float rounded to x's dtype first, as JAX does
     with a weakly typed scalar."""
@@ -197,7 +205,7 @@ def mlstm_block(params, x, cfg, state=None, *, chunk: int = 128):
     k = _scale(dense(xm, params["wk"]).reshape(B, S, H, dh), math.sqrt(dh))
     v = dense(xm, params["wv"]).reshape(B, S, H, dh)
     gates = dense(xm, params["wif"]).to(torch.float32)
-    i_gate = torch.exp(torch.clamp(gates[..., :H], max=4.0))  # capped exp
+    i_gate = torch.exp(torch.minimum(gates[..., :H], _const(4.0, gates)))
     log_f = F.logsigmoid(gates[..., H:])                       # [B,S,H]
 
     ki = k * i_gate[..., None].to(k.dtype)
@@ -206,8 +214,8 @@ def mlstm_block(params, x, cfg, state=None, *, chunk: int = 128):
     y, s_final = chunked_linear_rnn(q, ki, v, log_f, s0, chunk=chunk)
     ones = torch.ones(v.shape[:-1] + (1,), dtype=v.dtype, device=v.device)
     nrm, n_final = chunked_linear_rnn(q, ki, ones, log_f, n0, chunk=chunk)
-    y = y.to(torch.float32) / torch.clamp(
-        torch.abs(nrm.to(torch.float32)), min=1.0)
+    y = y.to(torch.float32) / torch.maximum(
+        torch.abs(nrm.to(torch.float32)), _const(1.0, y))
 
     y = y.reshape(B, S, d_inner).to(x.dtype)
     y = rms_norm(y * F.silu(z.to(torch.float32)).to(x.dtype),
@@ -252,6 +260,7 @@ def slstm_block(params, x, cfg, state=None):
     c, n, m, hprev = state
 
     r = params["r"].to(torch.float32)
+    one = _const(1.0, c)
     ys = []
     for t in range(S):
         rec = torch.einsum("bhd,hdk->bhk", hprev, r)           # [B, H, 4dh]
@@ -265,7 +274,7 @@ def slstm_block(params, x, cfg, state=None):
         f_p = torch.exp(log_f + m - m_new)
         c = f_p * c + i_p * zt
         n = f_p * n + i_p
-        hprev = ot * c / torch.clamp(n, min=1.0)
+        hprev = ot * c / torch.maximum(n, one)
         m = m_new
         ys.append(hprev)
     y = torch.stack(ys, dim=1).reshape(B, S, d).to(x.dtype)

@@ -12,7 +12,8 @@ import torch
 from repro_torch import configs
 from repro_torch.core import expertplane, kvplane, state
 from repro_torch.core.layout import PlaneConfig
-from repro_torch.launch import serve
+from repro_torch.checkpoint import ckpt
+from repro_torch.launch import serve, train
 from repro_torch.models import api
 from repro_torch.serving.engine import Engine, EngineConfig
 
@@ -51,7 +52,12 @@ def test_port_package_is_complete():
                 "models/attention.py", "models/mlp.py", "models/lm.py",
                 "models/api.py", "configs/__init__.py",
                 "core/shardplane.py", "launch/mesh.py", "models/ssm.py",
-                "models/encdec.py"):
+                "models/encdec.py", "optim/__init__.py",
+                "optim/optimizers.py", "optim/schedules.py",
+                "optim/accumulation.py", "optim/compression.py",
+                "data/synthetic.py", "data/pipeline.py",
+                "checkpoint/ckpt.py", "runtime/orchestrator.py",
+                "launch/train.py"):
         assert (port / mod).exists(), mod
         assert (jaxpkg / mod).exists(), mod
     for src in ("gather_rows.cu", "compact_pages.cu", "cat_decay.cu",
@@ -64,7 +70,7 @@ CFG = PlaneConfig(num_objs=64, obj_dim=4, page_objs=8, num_frames=4,
                   num_vpages=16)
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     """Without a ``device`` the entry points take the card; on a machine
     without one they raise instead of falling back to the CPU."""
     data = np.zeros((64, 4), np.float32)
@@ -82,7 +88,10 @@ def test_entry_points_default_to_cuda():
              lambda: expertplane.init(ep_cfg),
              lambda: api.init_decode_state(lm, shape),
              lambda: serve.main(["--mode", "lm", "--tokens", "1",
-                                 "--batch", "1"])]
+                                 "--batch", "1"]),
+             lambda: train.main(["--smoke", "--steps", "1", "--ckpt-dir",
+                                 str(tmp_path / "run")]),
+             lambda: ckpt.restore(str(tmp_path), 0, {"w": torch.zeros(2)})]
     if torch.cuda.is_available():
         assert state.create(CFG, torch.from_numpy(data)).slab.is_cuda
         return
