@@ -68,10 +68,12 @@ Phases (any failure exits non-zero, with no result line):
               card: this process, world size 1, one shard; N cards: N
               spawned ranks): access/update/advance_epoch/evacuate through
               the group == the loop oracle (== the plain plane at one
-              shard), and jitted_sharded_decode on llama3-8b long_500k
-              shards == the loop decode; launches counted on the calls
-              through the group alone; with one card it says that the
-              exchange across cards was not measured
+              shard), phase_probe ("pack", "ingress") through the group ==
+              the loop oracle's checksums with its device time a call, and
+              jitted_sharded_decode on llama3-8b long_500k shards == the
+              loop decode; launches counted on the calls through the group
+              alone; with one card it says that the exchange across cards
+              was not measured
  9. kernels   page_scores, paged_attention (the long_500k sparse step and
               the decode_32k batch; the other shapes either path takes;
               granite-20b's and paligemma-3b's widths) and cat_update
@@ -153,6 +155,21 @@ Every paged_attention launch of 11 to 18 is on the tensor cores.
 23. prefill   the same model's prefill step (2 x 64 tokens) against the
               64th logits of decode_step token by token through the dense
               KV plane (paged_attention, 4 launches a token)
+24. meshlayout the model-mesh layout executed on the card: llama3-8b at
+              full width, 2 of its 32 layers, f32, batch 2 x 2,048, one
+              plain train step and one on parameters, AdamW state and
+              batch laid out from their logical specs on a (1, 1)
+              ("data", "model") mesh over an NCCL group of one rank, shard
+              active: loss, gnorm and every updated parameter within 1e-5
+              of the largest; ms per step of each; ckpt.restore(mesh=,
+              spec_tree=param_pspecs) of those parameters bit for bit with
+              the resolved placements
+25. dryrun    launch.dryrun.run_cell on fake cuda meshes at full width, 2
+              of 32 layers: llama3-8b train_4k on 16 x 16 (256 fake ranks)
+              and 2 x 16 x 16 (512), prefill_32k on 16 x 16: argument
+              bytes a device against the arithmetic, FLOPs a device beside
+              the analytic model's, collectives by kind, MemTracker's
+              peak, the trace's seconds; gradient sync in the train cells
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA GPU and the repository's
@@ -282,6 +299,20 @@ RESUME_RTOL, PREFILL_TOL = 1e-5, 3e-3
 # the element's own |gradient|; for the rest a gradient error of e moves
 # the update by at most lr x e / 4 (every gradient is checked itself)
 FAM_GRAD_AGREE = 1e-3
+# the model-mesh layout: [meshlayout] llama3-8b at full width cut to 2 of
+# its 32 layers, f32, batch 2 x 2,048, one plain train step and one laid
+# out on a (1, 1) ("data", "model") mesh over an NCCL group of one rank
+# (one card: NCCL takes a card a rank), from step 10 (the schedule's lr is
+# 0 at step 0); the two steps' loss, gnorm and updated parameters within
+# 1e-5 of the largest; [dryrun] the port's dry-run of three cells at full
+# width, 2 of 32 layers, as rank 0 of a fake process group of 256 ranks
+# (16 x 16) or 512 (2 x 16 x 16)
+LAYOUT_LAYERS, LAYOUT_SEQ, LAYOUT_BATCH, LAYOUT_STEP = 2, 2048, 2, 10
+LAYOUT_TOL = 1e-5
+DRYRUN_LAYERS = 2
+DRYRUN_CELLS = (("llama3-8b", "train_4k", "single"),
+                ("llama3-8b", "train_4k", "multi"),
+                ("llama3-8b", "prefill_32k", "single"))
 
 
 def log(msg: str) -> None:
@@ -1492,6 +1523,22 @@ def mesh_checks(torch, m, rank: int, world: int, init: str, data_t,
             f"{int(tot.obj_ins)} evac_pages {int(tot.evac_pages)}")
         del so, sm, plain
         torch.cuda.empty_cache()
+        # the truncated exchange (phase_probe): this rank's checksum through
+        # the group == the loop oracle's, and its device time a call
+        ids = ids_all[0].reshape(S, R)
+        for phase in ("pack", "ingress"):
+            want = sp.phase_probe(scfg, phase)(ids)
+            probe = sp.phase_probe(scfg, phase, g)
+            got = tally(probe, ids)
+            check(got.shape == (1,) and int(got[0]) == int(want[rank]),
+                  f"shardmesh rank {rank}: phase_probe({phase!r}) "
+                  f"{got.tolist()} against the loop oracle's "
+                  f"{want.tolist()}")
+            us = device_ms(torch, lambda: probe(ids)) * 1e3
+            log(f"[shardmesh] rank {rank}/{world}: phase_probe({phase!r}) "
+                f"through the group == the loop oracle (checksum "
+                f"{int(got[0])}), {us:.2f} us of device time a call "
+                f"({scfg.rounds} round(s) of {R} ids)")
         # the KV plane's mesh decode: S long_500k shards of llama3-8b
         kg = torch.Generator(device=dev)
         kg.manual_seed(SEED + 8)
@@ -3707,6 +3754,185 @@ def phase_prefill(torch, ops, T, card: str) -> dict:
     return {"launches": launches, "max_rel_err": err, "prefill_ms": pre_ms}
 
 
+def phase_mesh_layout(torch, m, T, card: str) -> dict:
+    """llama3-8b at full width, 2 layers, f32, batch 2 x 2,048: one plain
+    train step, then one on parameters, AdamW state and batch laid out on
+    a (1, 1) mesh over an NCCL group of one rank from their logical specs
+    (``launch.mesh``, ``shard`` active), from one host copy, one model on
+    the card at a time: loss, gnorm and every updated parameter within
+    1e-5 of the largest; each side's second step timed.  Then
+    ``ckpt.restore(mesh=, spec_tree=param_pspecs)`` of those parameters:
+    DTensors with the resolved placements, equal bit for bit.  Returns the
+    kernel launches of the mesh steps."""
+    import contextlib
+    import shutil
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.checkpoint import ckpt
+    M, api, tree = m.mesh, T.api, T.tree
+    dev = torch.device("cuda")
+    cfg = T.configs.get_config("llama3-8b").scaled(n_layers=LAYOUT_LAYERS,
+                                                  dtype=torch.float32)
+    shape = T.configs.ShapeConfig("meshlayout", LAYOUT_SEQ, LAYOUT_BATCH,
+                                  "train")
+    opt = T.optimizers.get_optimizer("adamw")
+    fn = api.make_train_step(cfg, opt)
+    specs = api.batch_specs(cfg, shape)
+    batch_np = T.synthetic.batch_for_step(T.synthetic.DataConfig(
+        vocab=cfg.vocab, seq_len=LAYOUT_SEQ, global_batch=LAYOUT_BATCH,
+        seed=SEED), 0)
+    t0 = time.time()
+    host = tree.tree_map(lambda x: x.cpu(), api.init_params(
+        cfg, seed=SEED + 25, device=dev))
+    torch.cuda.empty_cache()
+    n_params = sum(x.numel() for x in tree.leaves(host))
+
+    def steps(mesh, on_first):
+        """Two steps from the host copy, ``on_first(loss, gnorm, params)``
+        after the first; returns the ms of each."""
+        params = tree.tree_map(lambda x: x.to(dev, copy=True), host)
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch_np.items()}
+        step = torch.full((), LAYOUT_STEP, dtype=torch.int32, device=dev)
+        ctx = contextlib.ExitStack()
+        if mesh is not None:
+            params = M.distribute_tree(params, mesh, api.param_pspecs(cfg))
+            batch = {k: M.distribute(v, mesh, specs[k][1])
+                     for k, v in batch.items()}
+            step = M.distribute(step, mesh, None)
+            ctx.enter_context(M.use_mesh(mesh))
+            ctx.enter_context(implicit_replication())
+        ms = []
+        with ctx:
+            state = opt.init(params)
+            for i in range(2):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                params, state, step, loss, gnorm = fn(params, state, step,
+                                                      batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+                if i == 0:
+                    on_first(loss, gnorm, params)
+        return ms
+
+    plain = {}
+    ms_plain = steps(None, lambda loss, gnorm, params: plain.update(
+        loss=loss, gnorm=gnorm, params=tree.tree_map(
+            lambda x: x.to("cpu", copy=True), params)))
+    torch.cuda.empty_cache()
+    init = f"tcp://localhost:{free_port()}"
+    M.init_far(0, 1, init)
+    try:
+        mesh = M.make_host_mesh(1, 1, device_type="cuda")
+        seen = {}
+
+        def compare(loss, gnorm, params):
+            worst = 0.0
+            for got, want in [(loss, plain["loss"]), (gnorm, plain["gnorm"])
+                              ] + list(zip(tree.leaves(params),
+                                           tree.leaves(plain["params"]))):
+                worst = max(worst, rel_err(got.full_tensor(), want.to(dev)))
+            seen.update(worst=worst, placements=sorted(
+                {str(tuple(p.placements)) for p in tree.leaves(params)}))
+        m.ops.reset_launch_counts()
+        ms_mesh = steps(mesh, compare)
+        launches = m.ops.launch_counts()
+        torch.cuda.empty_cache()
+        check(seen["worst"] <= LAYOUT_TOL,
+              f"[meshlayout] the step on the mesh is {seen['worst']:.3g} of "
+              f"the largest off the plain step's")
+        log(f"[meshlayout] llama3-8b {LAYOUT_LAYERS} of 32 layers at full "
+            f"width, f32, {n_params / 1e9:.3f} B parameters, batch "
+            f"{LAYOUT_BATCH} x {LAYOUT_SEQ}, AdamW from step {LAYOUT_STEP}: "
+            f"the step laid out on a (data 1, model 1) mesh of an NCCL group "
+            f"of one rank (placements {seen['placements']}) == the plain "
+            f"step: loss {float(plain['loss']):.6f}, gnorm "
+            f"{float(plain['gnorm']):.4f}, loss, gnorm and all "
+            f"{len(tree.leaves(plain['params']))} updated parameters within "
+            f"{seen['worst']:.3g} of the largest (tolerance {LAYOUT_TOL}) "
+            f"[{card}]")
+        log(f"[meshlayout] ms per step: plain {ms_plain[1]:.1f} (first "
+            f"{ms_plain[0]:.1f}), on the mesh {ms_mesh[1]:.1f} (first "
+            f"{ms_mesh[0]:.1f}): DTensor's host cost "
+            f"{ms_mesh[1] - ms_plain[1]:.1f} ms a step; kernel launches "
+            f"{launches} [{card}]")
+        # the parameters restored onto the mesh from a checkpoint
+        ckdir = ROOT / "build" / "meshlayout_ckpt"
+        shutil.rmtree(ckdir, ignore_errors=True)
+        t1 = time.time()
+        ckpt.save(str(ckdir), 1, host)
+        got, _ = ckpt.restore(str(ckdir), 1, host, mesh=mesh,
+                              spec_tree=api.param_pspecs(cfg))
+        same = True
+        for (path, g), w in zip(tree.flatten_with_path(got),
+                                tree.leaves(host)):
+            spec = api.param_pspecs(cfg)
+            for k in path:
+                spec = spec[k]
+            same &= list(g.placements) == M.placements(mesh, spec)
+            same &= torch.equal(g.full_tensor(), w.to(dev))
+        check(bool(same), "[meshlayout] the restored parameters differ from "
+                          "the saved ones or their placements")
+        del got
+        shutil.rmtree(ckdir, ignore_errors=True)
+        log(f"[meshlayout] ckpt.restore(mesh=, spec_tree=param_pspecs) of "
+            f"those parameters: DTensors with each spec's placements, equal "
+            f"bit for bit ({time.time() - t1:.1f}s with the save) "
+            f"({time.time() - t0:.1f}s in all) [{card}]")
+    finally:
+        m.dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    return {"ms_plain": ms_plain[1], "ms_mesh": ms_mesh[1],
+            "launches": launches}
+
+
+def phase_dryrun(torch, card: str) -> None:
+    """The port's dry-run (``launch.dryrun.run_cell``) on fake ``cuda``
+    meshes at full width, 2 of 32 layers, for DRYRUN_CELLS: the argument
+    bytes a device (against the arithmetic: each 2-D parameter split over
+    every chip, the norms whole), the FLOPs a device beside the analytic
+    model's, the collectives by kind, MemTracker's peak and the trace's
+    seconds; gradient sync in the train cells."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import api
+    from repro_torch.tree import leaves
+    for arch, sname, kind in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, sname, kind,
+                              layers_override=DRYRUN_LAYERS, device="cuda")
+        check(rec["status"] == "ok", f"[dryrun] {arch} {sname} {kind}: "
+                                     f"{rec.get('error')}\n"
+                                     f"{rec.get('traceback', '')}")
+        chips = 512 if kind == "multi" else 256
+        cfg, shape = dryrun.cell_config(arch, sname, DRYRUN_LAYERS)
+        pbytes = sum(x.numel() * x.element_size() / (chips if x.dim() == 2
+                                                     else 1)
+                     for x in leaves(api.param_shapes(cfg)))
+        ab = rec["arg_bytes_per_device"]
+        check(ab["params"]["device"] == pbytes,
+              f"[dryrun] parameter bytes {ab['params']['device']} against "
+              f"{pbytes}")
+        flops = rec["cost_analysis"]["flops"]
+        model = rec["analytic"]["flops_per_chip"]
+        coll = rec["collectives"]
+        by_kind = {k: (v["count"], v["wire_bytes_corrected"])
+                   for k, v in coll.items()
+                   if isinstance(v, dict) and v["count"]}
+        if shape.kind == "train":
+            check(coll["all-reduce"]["count"] + coll["reduce-scatter"][
+                "count"] > 0, "[dryrun] no gradient sync in a train cell")
+        mem = rec["memory"]
+        log(f"[dryrun] {arch} {sname} on {kind} {rec['mesh_shape']}, "
+            f"{DRYRUN_LAYERS} of 32 layers: argument bytes a device "
+            f"{ab['total']['device']:,.0f} (params {pbytes:,.0f} == the "
+            f"arithmetic), host_tier {ab['total']['host_tier']:,.0f}; "
+            f"FLOPs a device {flops:.4g} traced, {model:.4g} analytic "
+            f"(ratio {flops / model:.3f}); collectives {by_kind} (count, "
+            f"wire bytes); MemTracker peak {mem['Total']:,} B (Parameter "
+            f"{mem['Parameter']:,}, Other {mem['Other']:,}, Activation "
+            f"{mem['Activation']:,}, Temp {mem['Temp']:,}); traced in "
+            f"{rec['trace_s']}s ({rec['total_s']}s with the fake group) "
+            f"[{card}]")
+
+
 def port_modules():
     """The port's modules the phases use, as attributes of one object."""
     import numpy as np
@@ -3938,6 +4164,10 @@ def main() -> int:
     phase_train_fam(torch, T, card)
     trn = phase_train(torch, ops, T, card)
     pre = phase_prefill(torch, ops, T, card)
+    t_mesh = time.time()
+    lay = phase_mesh_layout(torch, M, T, card)
+    phase_dryrun(torch, card)
+    log(f"[meshlayout] [dryrun] took {time.time() - t_mesh:.1f}s [{card}]")
     log(f"[train] summary: llama3-8b {TRAIN_LAYERS} layers f32, batch "
         f"{TRAIN_BATCH} x {TRAIN_SEQ}: {trn['step_ms']:.1f} ms per step, "
         f"{trn['tokens_per_s']:,.0f} tokens/s, peak "
@@ -3952,7 +4182,7 @@ def main() -> int:
             "lmssm": ssm["launches"], "lmhybrid": hyb["launches"],
             "lmhybrid_long": hyb["long_launches"],
             "lmencdec": encd["launches"], "train": trn["launches"],
-            "prefill": pre["launches"]}
+            "prefill": pre["launches"], "meshlayout": lay["launches"]}
     for k in kernels:
         if k["name"] in ("page_scores", "paged_attention", "cat_update"):
             # cat_update is on no runtime path, in the JAX package either

@@ -15,9 +15,10 @@ A tree of the same structure is readable by either package.  The port's
 model parameters keep a list of layers where JAX stacks them, so a port
 checkpoint of parameters has per-layer leaves (``convert`` bridges the two
 layouts).  A bf16 leaf is written as numpy writes JAX's (``<V2``, the raw
-bits; the manifest says ``bfloat16``) and read back as bf16.  Restoring
-onto a mesh (``mesh``/``spec_tree``) waits for the port's model-mesh
-layout helpers and is refused.
+bits; the manifest says ``bfloat16``) and read back as bf16.  With
+``mesh`` and ``spec_tree`` a restore lays each leaf out on the mesh by its
+spec (``launch.mesh.distribute``): a restart may use another mesh than
+the writer.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from ..core.state import resolve_device
+from ..launch import mesh as mesh_lib
 from ..tree import flatten_with_path, tree_map, unflatten
 
 
@@ -103,18 +105,21 @@ def latest(ckpt_dir: str) -> Optional[int]:
 def restore(ckpt_dir: str, step: int, template: Any, *, device="cuda",
             mesh=None, spec_tree=None) -> Any:
     """Load a checkpoint into ``template``'s tree structure, every leaf a
-    tensor on ``device``.  Returns (tree, extra)."""
-    dev = resolve_device(device)
-    if mesh is not None or spec_tree is not None:
-        raise NotImplementedError(
-            "repro_torch.checkpoint.restore: re-sharding onto a mesh waits "
-            "for the port's model-mesh layout helpers (launch/mesh.py)")
+    tensor on ``device``; with ``mesh`` and ``spec_tree`` (a spec tree of
+    the template's structure) every leaf a DTensor on ``mesh`` laid out by
+    its spec.  Returns (tree, extra)."""
+    if (mesh is None) != (spec_tree is None):
+        raise ValueError("restore onto a mesh needs both mesh and spec_tree")
+    dev = resolve_device(mesh.device_type if mesh is not None else device)
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     arrays = [_from_numpy(np.load(os.path.join(path, rec["file"])),
                           rec["dtype"], dev) for rec in manifest["leaves"]]
-    return unflatten(template, arrays), manifest.get("extra", {})
+    tree = unflatten(template, arrays)
+    if mesh is not None:
+        tree = mesh_lib.distribute_tree(tree, mesh, spec_tree)
+    return tree, manifest.get("extra", {})
 
 
 def prune(ckpt_dir: str, keep: int = 3):

@@ -632,6 +632,43 @@ def jitted_evacuate(cfg: ShardedPlaneConfig, garbage_threshold=None,
                    clear_access)
 
 
+def _probe(cfg: ShardedPlaneConfig, phase: str, ids, *, pack, a2a):
+    """The truncated exchange: every round's pack, and with ``"ingress"``
+    the fused ingress payload's collective too; per shard the int32 sum of
+    every payload and spill count (leading dims from ``ids``)."""
+    todo = ids >= 0
+    acc = torch.zeros(ids.shape[:-1], dtype=I32, device=ids.device)
+    for _ in range(cfg.rounds):
+        send, cnt, todo, nsp = pack(ids, todo)
+        x = kops.fuse_ids_counts(send, cnt)
+        if phase == "ingress":
+            x = a2a(x)
+        acc = acc + x.reshape(acc.shape + (-1,)).sum(dim=-1, dtype=I32) + nsp
+    return acc
+
+
+def phase_probe(cfg: ShardedPlaneConfig, phase: str, group=None):
+    """``ids [S, R] -> checksums``: the benchmark-only probe of JAX's
+    ``jitted_phase_probe``, which times ``"pack"``, then ``"ingress"``
+    (pack + the fused collective), against a full access to split a call
+    into pack, collective and serve.  ``group=None`` runs the loop oracle
+    over the S shards (``[S]``); a far group this rank's shard (``[1]``,
+    its block)."""
+    if phase not in ("pack", "ingress"):
+        raise ValueError(f"phase {phase!r}: 'pack' or 'ingress'")
+    if group is None:
+        return partial(_probe, cfg, phase,
+                       pack=_stacked(partial(_pack_round, cfg), cfg.shards),
+                       a2a=_swap)
+
+    def probe(ids):
+        me = dist.get_rank(group)
+        return _probe(cfg, phase, ids.to(far.far_device(group))[me],
+                      pack=partial(_pack_round, cfg),
+                      a2a=partial(far.all_to_all, group))[None]
+    return probe
+
+
 # --------------------------------------------------------------------------
 # introspection (with a group, gathered from every rank)
 # --------------------------------------------------------------------------

@@ -1,7 +1,10 @@
 """Model API (port of ``repro.models.api``): one surface over all
 families for the launchers, the trainer and the serving engine.
 
-  * ``model_defs(cfg)`` / ``init_params``
+  * ``model_defs(cfg)`` / ``init_params`` / ``param_shapes`` /
+    ``param_pspecs`` / ``opt_state_pspecs``
+  * ``batch_specs(cfg, shape)``         — input meta tensors + specs
+  * ``serve_state_pspecs(cfg, shape)``  — the serve state's specs
   * ``loss(cfg)``                       — train/prefill forward + loss
   * ``make_train_step(cfg, opt)``       — (params, opt_state, step, batch)
                                           -> (params, opt_state, step + 1,
@@ -31,7 +34,8 @@ Where the port departs from the JAX form, and why:
   states; here ``params["blocks"]`` (``dec_blocks``, a group's ``mamba``,
   ``tail``), ``ServeState.kv`` and ``ServeState.extra`` hold lists of
   per-layer entries (a sparse layer's KV entry a list of shard states) and
-  the step loops over them.
+  the step loops over them.  The spec trees follow: a per-layer spec has
+  no layer axis, and a list of shard states has ``PerShard`` specs.
 * **Planes in place.**  A step updates the KV and expert planes in place
   and returns a ``ServeState`` over the same planes with the new
   ``lengths`` and new recurrent and conv state tensors (JAX's are new
@@ -61,7 +65,9 @@ from . import encdec as encdec_lib
 from . import lm as lm_lib
 from . import mlp as mlp_lib
 from . import ssm as ssm_lib
-from .common import dense, init_params as _init, rms_norm, rope
+from ..launch import mesh as mesh_lib
+from .common import DP, dense, init_params as _init, pspecs as _pspecs, \
+    rms_norm, rope, shapes as _shapes
 
 PAGE_TOKENS = 64          # KV page size (tokens) across the framework
 SPARSE_TOPK = 64          # pages selected per sparse decode step (global)
@@ -85,10 +91,77 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     return _init(model_defs(cfg), g, dev)
 
 
+def param_shapes(cfg: ArchConfig):
+    """The parameter tree as meta tensors (no storage)."""
+    return _shapes(model_defs(cfg))
+
+
+def param_pspecs(cfg: ArchConfig):
+    return _pspecs(model_defs(cfg))
+
+
+def _stacked_specs(tree):
+    """The spec tree in JAX's stacked layout (``optim.optimizers.stacked``):
+    a list of per-layer trees becomes one tree whose specs lead with the
+    layer axis."""
+    if isinstance(tree, dict):
+        return {k: _stacked_specs(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return mesh_lib.map_specs(lambda s: (None,) + tuple(s),
+                                  _stacked_specs(tree[0]))
+    return tree
+
+
+def opt_state_pspecs(cfg: ArchConfig, opt_name: str):
+    """Optimizer-state logical specs mirroring the parameter specs: AdamW's
+    moments in the parameters' per-layer layout, Adafactor's factored
+    statistics in JAX's stacked one (their specs keep the layer axis)."""
+    ps = param_pspecs(cfg)
+    if opt_name == "adamw":
+        return {"mu": ps, "nu": ps}
+    if opt_name == "adafactor":
+        def per(spec):
+            spec = tuple(spec)
+            if len(spec) >= 2:
+                return {"vr": spec[:-1], "vc": spec[:-2] + spec[-1:]}
+            return {"v": spec}
+        return {"f": mesh_lib.map_specs(per, _stacked_specs(ps))}
+    raise ValueError(opt_name)
+
+
 def loss(cfg: ArchConfig) -> Callable:
     if cfg.family == "encdec":
         return functools.partial(encdec_lib.loss_fn, cfg)
     return functools.partial(lm_lib.loss_fn, cfg)
+
+
+# --------------------------------------------------------------------------
+# input specs (meta tensors; no allocation)
+# --------------------------------------------------------------------------
+
+def batch_specs(cfg: ArchConfig, shape: ShapeConfig):
+    """{name: (meta tensor, logical spec)} for the step's input."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(shp, dtype=torch.int32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+    out = {}
+    if shape.kind in ("train", "prefill"):
+        out["tokens"] = (meta((B, S)), ("batch", None))
+        if shape.kind == "train":
+            out["labels"] = (meta((B, S)), ("batch", None))
+        if cfg.family == "encdec":
+            senc = max(S // 4, 128)
+            out["frames"] = (meta((B, senc, cfg.d_model), cfg.dtype),
+                             ("batch", None, None))
+        if cfg.frontend == "vision":
+            out["patches"] = (meta((B, cfg.frontend_seq, cfg.frontend_dim),
+                                   cfg.dtype), ("batch", None, None))
+    else:  # decode / decode_long: one new token per sequence
+        # batch=1 (long-context) cannot shard over dp -> replicate
+        tok_spec = (DP,) if B > 1 else (None,)
+        out["tokens"] = (meta((B,)), tok_spec)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -411,6 +484,78 @@ def decode_step(cfg: ArchConfig, shape: ShapeConfig, shards: int = 1, *,
         return ServeState(lengths + 1, state.kv, state.extra), logits
 
     return step
+
+
+# --------------------------------------------------------------------------
+# serve-state logical partition specs (mirrors init_decode_state)
+# --------------------------------------------------------------------------
+
+class PerShard(list):
+    """The specs of a list of shard states (a sparse KV plane's), laid out
+    one shard a rank over the ``dp`` axes: JAX's leading shard axis, sharded
+    over ``dp``, which the port keeps as a list."""
+    axis = DP
+
+
+def _kv_state_pspecs(shard_batch: bool) -> kvplane.KVPlaneState:
+    """One layer's (or one shard's) KV plane specs over JAX's logical
+    shapes (``KVPlaneState.view``: no trash rows, ``[B, NP]`` tables)."""
+    b = DP if shard_batch else None
+    return kvplane.KVPlaneState(
+        k_frames=(None, b, None, None), v_frames=(None, b, None, None),
+        page_table=(b, None),
+        # dense mode keeps a size-1 slab placeholder -> replicated
+        k_slab=(None, None, None, None), v_slab=(None, None, None, None),
+        kmax=(None, None, None), kmin=(None, None, None),
+        cat=(b, None, None), psf=(b, None), hot_hint=(b, None, None),
+        page_rows=(b, None), frame_page=(b,), clock=(b,), step=())
+
+
+def _kv_pspecs(mode: str, shard_batch: bool, shards: int):
+    if mode == "sparse":
+        return PerShard([_kv_state_pspecs(False)] * shards)
+    return _kv_state_pspecs(shard_batch)
+
+
+def _expert_state_pspecs() -> expertplane.ExpertPlaneState:
+    return expertplane.ExpertPlaneState(
+        hot_wi=(None, DP, None), hot_wg=(None, DP, None),
+        hot_wo=(None, None, DP), slot_of=(None,), expert_of=(None,),
+        clock=(None,), access=(None,), step=())
+
+
+def serve_state_pspecs(cfg: ArchConfig, shape: ShapeConfig, shards: int = 1):
+    """The specs of ``init_decode_state``'s tree, in the port's structure
+    (lists of layers, lists of shard states), over the planes' logical
+    shapes."""
+    B = shape.global_batch
+    shard_b = B > 1
+    b = DP if shard_b else None
+    L = _n_groups(cfg)
+    fam = cfg.family
+    lengths = (DP,) if shard_b else (None,)
+
+    if fam == "ssm":
+        one = {"mlstm_s": (b, None, None, None),
+               "mlstm_n": (b, None, None, None),
+               "slstm": ((b, None, None),) * 4}
+        return ServeState(lengths, [one] * L, ())
+
+    _, mode = kv_plan(cfg, shape, shards)
+    kv = _kv_pspecs(mode, shard_b, shards)
+    if fam == "hybrid":
+        def mamba(n):
+            return {"conv": [(b, None, None)] * n,
+                    "ssm": [(b, None, None, None)] * n}
+        return ServeState(lengths, [dict(mamba(5), attn_kv=kv)] * L,
+                          mamba(2))
+
+    if fam == "encdec":
+        cross = {n: [(b, None, None, None)] * L for n in ("k", "v")}
+        return ServeState(lengths, [kv] * L, cross)
+
+    extra = [_expert_state_pspecs()] * L if _uses_expert_plane(cfg) else ()
+    return ServeState(lengths, [kv] * L, extra)
 
 
 # --------------------------------------------------------------------------

@@ -11,9 +11,13 @@ PyTorch, as it is plain ``jnp`` in JAX; its gradients come from autograd.
 """
 from __future__ import annotations
 
-import torch
+from functools import partial
 
-from .common import DP, TP, ParamDef, dense, rope
+import torch
+from torch.distributed.tensor import DTensor
+
+from ..launch import mesh as mesh_lib
+from .common import BATCH, DP, TP, ParamDef, dense, rope, shard
 
 NEG_INF = -1e30
 
@@ -29,12 +33,15 @@ def attn_defs(d_model: int, n_heads: int, n_kv_heads: int, head_dim: int,
 
 
 def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
-    """[B, S, KVH, Dh] -> [B, S, KVH*G, Dh] by head-group repetition."""
+    """[B, S, KVH, Dh] -> [B, S, KVH*G, Dh] by head-group repetition.  On
+    a mesh the repeated heads are split over "model" as the query heads
+    are, so the gradient reaches the repetition whole (DTensor cannot
+    unflatten a split head dimension into (KVH, G))."""
     if groups == 1:
         return k
     b, s, kvh, dh = k.shape
     k = k[:, :, :, None, :].expand(b, s, kvh, groups, dh)
-    return k.reshape(b, s, kvh * groups, dh)
+    return shard(k.reshape(b, s, kvh * groups, dh), (BATCH, None, TP, None))
 
 
 def _sqrt_dh(Dh: int, device) -> torch.Tensor:
@@ -134,18 +141,39 @@ def attend(params, x, positions, cfg, *, kv_override=None, causal=True,
     (k, v))."""
     B, S, _ = x.shape
     H, KVH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = dense(x, params["wq"]).reshape(B, S, H, Dh)
+    q = mesh_lib.split_heads(dense(x, params["wq"]), H)
     if kv_override is None:
-        k = dense(x, params["wk"]).reshape(B, S, KVH, Dh)
-        v = dense(x, params["wv"]).reshape(B, S, KVH, Dh)
+        k = mesh_lib.split_heads(dense(x, params["wk"]), KVH)
+        v = mesh_lib.split_heads(dense(x, params["wv"]), KVH)
         k = rope(k, positions, cfg.rope_theta)
     else:
         k, v = kv_override
     q = rope(q, positions, cfg.rope_theta)
     fn = chunked_attention if chunked else full_attention
-    out = fn(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    out = per_shard(partial(fn, causal=causal, window=window,
+                            q_offset=q_offset), q, k, v)
     out = dense(out.reshape(B, S, H * Dh), params["wo"])
     return out, (k, v)
+
+
+def per_shard(fn, q, k, v):
+    """``fn(q, k, v)``, the attention core.  On a mesh each rank runs it on
+    its own shard of the batch and of the (repeated) heads
+    (``mesh.local``): the core exchanges nothing across either dimension,
+    and DTensor cannot flatten a batch and a head dimension split over
+    two mesh axes into the products' one batch dimension (torch 2.11
+    refuses it; 2.13 plans it so slowly that a multi-pod trace does not
+    finish).  A dimension its axis does not divide stays whole."""
+    mesh = mesh_lib.current_mesh()
+    if mesh is None or not isinstance(q, DTensor):
+        return fn(q, k, v)
+    G = q.shape[2] // k.shape[2]
+    k, v = _repeat_kv(k, G), _repeat_kv(v, G)
+    spec = (BATCH if q.shape[0] % mesh_lib.axis_size(mesh, BATCH) == 0
+            else None, None,
+            TP if q.shape[2] % mesh_lib.axis_size(mesh, TP) == 0 else None,
+            None)
+    return mesh_lib.local(fn, (spec,) * 3, spec)(q, k, v)
 
 
 def decode_attend(params, x, position, cache_k, cache_v, cfg, *, window=0):

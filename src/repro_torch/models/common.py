@@ -5,10 +5,14 @@ Parameters are plain nested dicts of tensors with the JAX package's key
 names.  A model is defined as a tree of :class:`ParamDef` (shape +
 initializer + logical partition spec); ``init_params`` materializes it.
 Where JAX stacks a layer axis onto every leaf for ``lax.scan``, the port
-keeps a list of per-layer trees (``stack_layers``) and loops over it.
+keeps a list of per-layer trees (``stack_layers``) and loops over it, so
+a leaf's spec has no layer axis.
 
-The logical sharding specs are kept for the mesh slice; ``shard`` and
-``pspecs`` wait for it.
+Logical sharding axes used in specs (resolved against the mesh by
+``repro_torch.launch.mesh.resolve``):
+  * ``"dp"`` -- data/FSDP axis; ``("pod", "data")`` on the multi-pod mesh
+    and ``("data",)`` on the single-pod mesh.
+  * ``"tp"`` -- tensor-parallel axis; ``"model"``.
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ import math
 from typing import Any
 
 import torch
+
+from ..launch import mesh as mesh_lib
 
 DP = "dp"
 TP = "tp"
@@ -70,6 +76,17 @@ def init_params(defs, generator: torch.Generator, device="cuda"):
     return _map(lambda d: d.initialize(generator, device), defs)
 
 
+def shapes(defs):
+    """The tree of ``defs`` as meta tensors (shape and dtype, no
+    storage): JAX's ``ShapeDtypeStruct`` tree."""
+    return _map(lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"),
+                defs)
+
+
+def pspecs(defs):
+    return _map(lambda d: d.spec, defs)
+
+
 def stack_layers(defs, n: int) -> list:
     """``n`` layers of ``defs``: the list the port loops over where JAX
     scans over a leading layer axis."""
@@ -104,5 +121,14 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4):
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., d_in] @ w [d_in, d_out], the output in x's dtype (JAX's
-    ``preferred_element_type=x.dtype``: bf16 in, bf16 out)."""
-    return torch.matmul(x, w)
+    ``preferred_element_type=x.dtype``: bf16 in, bf16 out).  On a mesh the
+    weight's ``dp`` dimensions are gathered first (``mesh.gather_dp``) and a
+    tensor-parallel product's partial sums all-reduced after."""
+    return mesh_lib.reduce_partial(torch.matmul(x, mesh_lib.gather_dp(w)))
+
+
+def shard(x: torch.Tensor, spec: tuple):
+    """Logical-axis sharding constraint: a DTensor redistributed to
+    ``spec`` on the current mesh; the identity outside a mesh context and
+    for a plain tensor."""
+    return mesh_lib.constrain(x, spec)

@@ -17,7 +17,8 @@ import torch
 from ..configs import ArchConfig
 from . import attention as attn
 from . import mlp as mlp_lib
-from .common import DP, TP, ParamDef, dense, rms_norm, stack_layers
+from .common import BATCH, DP, TP, ParamDef, dense, rms_norm, shard, \
+    stack_layers
 from .lm import embed_tokens, next_token_loss, pad_vocab, run_group
 
 
@@ -61,7 +62,7 @@ def encode(cfg: ArchConfig, params, frames: torch.Tensor) -> torch.Tensor:
     """frames [B, S_enc, d_model] (cast to ``cfg.dtype``) -> the encoder's
     output."""
     B, S, _ = frames.shape
-    x = frames.to(cfg.dtype)
+    x = shard(frames.to(cfg.dtype), (BATCH, None, None))
     positions = torch.arange(S, device=x.device).expand(B, S)
 
     def fwd(x, bp):
@@ -72,7 +73,8 @@ def encode(cfg: ArchConfig, params, frames: torch.Tensor) -> torch.Tensor:
         return x + mlp_lib.mlp(bp["mlp"], h)
 
     for bp in params["enc_blocks"]:
-        x = run_group(lambda x, bp=bp: fwd(x, bp), x, cfg.remat)
+        x = shard(run_group(lambda x, bp=bp: fwd(x, bp), x, cfg.remat),
+                  (BATCH, None, None))
     return rms_norm(x, params["enc_ln"])
 
 
@@ -80,7 +82,7 @@ def decode_train(cfg: ArchConfig, params, tokens: torch.Tensor,
                  enc_out: torch.Tensor) -> torch.Tensor:
     """Teacher-forced decoder pass -> logits [B, S, vocab_padded] f32."""
     B, S = tokens.shape
-    x = embed_tokens(cfg, params["embed"], tokens)
+    x = shard(embed_tokens(cfg, params["embed"], tokens), (BATCH, None, None))
     positions = torch.arange(S, device=x.device).expand(B, S)
 
     def fwd(x, bp):
@@ -99,9 +101,11 @@ def decode_train(cfg: ArchConfig, params, tokens: torch.Tensor,
         return x + mlp_lib.mlp(bp["mlp"], h)
 
     for bp in params["dec_blocks"]:
-        x = run_group(lambda x, bp=bp: fwd(x, bp), x, cfg.remat)
+        x = shard(run_group(lambda x, bp=bp: fwd(x, bp), x, cfg.remat),
+                  (BATCH, None, None))
     x = rms_norm(x, params["final_ln"])
-    return dense(x, params["lm_head"]).to(torch.float32)
+    return shard(dense(x, params["lm_head"]), (BATCH, None, TP)
+                 ).to(torch.float32)
 
 
 def loss_fn(cfg: ArchConfig, params, batch) -> torch.Tensor:

@@ -9,8 +9,9 @@ Mamba2 blocks and one application of the shared attention block for zamba2
 the groups.  ``forward`` loops over the groups where JAX scans; with
 ``cfg.remat`` each group runs under ``torch.utils.checkpoint`` (JAX's
 ``jax.checkpoint`` with ``nothing_saveable``: only the group's input is
-kept, the group is run again in the backward pass).  JAX's ``shard``
-annotations are no-ops outside a mesh and the port has none.
+kept, the group is run again in the backward pass).  The ``shard``
+annotations sit at JAX's places; they redistribute DTensors on a current
+mesh (``launch.mesh.use_mesh``) and are the identity otherwise.
 
 The embedding is a lookup (``F.embedding``) where JAX multiplies a one-hot
 matrix into the table: each output has a single nonzero term, so the
@@ -19,6 +20,17 @@ token's rows in a fixed order (a scatter with atomics would not), which
 keeps a resumed run's losses equal to an uninterrupted one's.  The loss
 picks each label's logit by ``gather`` where JAX multiplies a one-hot
 matrix in: the same value, with no [B, S, vocab] temporary.
+
+Over DTensors two ops lack a sharding rule that works here, and each
+takes a replicated operand first (a plain tensor passes through
+unchanged): the lookup, whose vocab-sharded table against batch-sharded
+tokens fails in DTensor's masked-partial path, takes the table
+replicated; the loss's ``gather``, whose vocab-sharded logits fail the
+same way when the result is reduce-scattered, takes the logits with
+their vocab dimension replicated and runs on each rank's batch shard
+(``mesh.local``): its backward over DTensors would build its zeros at the
+global [B, S, vocab] shape on every rank (538 GB at llama3-8b's
+train_4k).
 """
 from __future__ import annotations
 
@@ -31,10 +43,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs import ArchConfig
+from ..launch import mesh as mesh_lib
+from ..launch.mesh import gather_dp
 from . import attention as attn
 from . import mlp as mlp_lib
 from . import ssm
-from .common import DP, TP, ParamDef, dense, rms_norm, stack_layers
+from .common import BATCH, DP, TP, ParamDef, dense, rms_norm, shard, \
+    stack_layers
 
 
 def pad_vocab(vocab: int, multiple: int = 128) -> int:
@@ -107,7 +122,7 @@ class Aux(NamedTuple):
 def embed_tokens(cfg: ArchConfig, embed: torch.Tensor, tokens: torch.Tensor):
     """tokens [B, S] -> [B, S, d]: the rows of ``embed`` times sqrt(d_model)
     rounded to the table's dtype, as JAX rounds the weakly typed scalar."""
-    x = F.embedding(tokens.long(), embed)
+    x = F.embedding(tokens.long(), shard(embed, (None, None)))
     return x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
                           device=x.device)
 
@@ -164,6 +179,8 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor,
     B, S = tokens.shape
     embed = params["embed"]
     x = embed_tokens(cfg, embed, tokens)
+    # keep activations batch-sharded over dp
+    x = shard(x, (BATCH, None, None))
     if cfg.frontend == "vision" and patches is not None:
         pre = dense(patches.to(x.dtype), params["patch_proj"])
         x = torch.cat([pre, x], dim=1)
@@ -174,6 +191,7 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor,
     for gi, gparams in enumerate(params["blocks"]):
         x, a = run_group(lambda x, gi=gi, gp=gparams: _group_fwd(
             cfg, params, gi, gp, x, positions), x, cfg.remat)
+        x = shard(x, (BATCH, None, None))
         aux = aux + a
 
     if cfg.family == "hybrid":   # zamba2 tail layers
@@ -182,20 +200,28 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor,
 
     x = rms_norm(x, params["final_ln"])
     if cfg.tie_embeddings:
-        logits = torch.matmul(x, embed.t())
+        logits = torch.matmul(x, gather_dp(embed).t())
     else:
         logits = dense(x, params["lm_head"])
+    logits = shard(logits, (BATCH, None, TP))
     if cfg.frontend == "vision" and patches is not None:
         logits = logits[:, -S:]
     return logits.to(torch.float32), Aux(aux)
 
 
+def _pick(logits, labels):
+    """Each label's logit: logits [..., V], labels [...] int64."""
+    return logits.gather(-1, labels.unsqueeze(-1)).squeeze(-1)
+
+
 def next_token_loss(logits: torch.Tensor, labels: torch.Tensor):
     """Mean cross entropy over the labels >= 0 (JAX's masked mean)."""
+    logits = shard(logits, (BATCH, None, None))
     mask = (labels >= 0).to(torch.float32)
     labels = labels.long().clamp_min(0)
     lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, labels[..., None])[..., 0]
+    picked = mesh_lib.local(_pick, ((BATCH, None, None), (BATCH, None)),
+                            (BATCH, None))(logits, labels)
     nll = (lse - picked) * mask
     return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
 

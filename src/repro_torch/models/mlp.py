@@ -9,6 +9,12 @@ products, weighted combine).  The same function is the MoE layer of the
 training forward (``models.lm``), at ``cfg.moe_capacity``; its router's
 gradient flows through the sorted probabilities (``stable_order``'s
 values), as JAX's flows through ``lax.top_k``'s.
+
+Over DTensors the ``shard`` annotations sit at JAX's places, each weight
+is gathered over ``dp`` before its product (``gather_dp``), and the
+counts and the dispatch scatter are out-of-place ``index_add``/
+``index_put`` (DTensor takes no plain tensor as an in-place target; the
+plain path computes the same bits).
 """
 from __future__ import annotations
 
@@ -17,7 +23,8 @@ import math
 import torch
 
 from ..core.batch import stable_order
-from .common import DP, TP, ParamDef, dense
+from ..launch.mesh import gather_dp
+from .common import BATCH, DP, TP, ParamDef, dense, shard
 
 
 def mlp_defs(d_model: int, d_ff: int, dtype) -> dict:
@@ -55,7 +62,7 @@ def route(xg, router, topk: int):
     softmax; the top-k with ``lax.top_k``'s ties (lower index first); the
     gates renormalized.  xg [G, Tg, d] -> (probs [G, Tg, E], gate
     [G, Tg, K], expert [G, Tg, K] int32)."""
-    logits = torch.einsum("gtd,de->gte", xg, router.to(xg.dtype)
+    logits = torch.einsum("gtd,de->gte", xg, gather_dp(router).to(xg.dtype)
                           ).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     vals, order = stable_order(probs, descending=True)
@@ -86,12 +93,13 @@ def moe(params, x, *, n_experts: int, topk: int, capacity_factor: float = 1.25,
     dev = x.device
 
     xg = x.reshape(G, Tg, d)
+    xg = shard(xg, (BATCH, None, None))
     probs, gate, expert = route(xg, params["router"], K)        # [G, Tg, *]
 
     # aux loss (Switch-style load balancing, global)
     me = probs.mean(dim=(0, 1))                                 # [E]
     flat = expert.reshape(-1).long()
-    ce = torch.zeros((E,), dtype=torch.float32, device=dev).index_add_(
+    ce = torch.zeros((E,), dtype=torch.float32, device=dev).index_add(
         0, flat, torch.full(flat.shape, 1.0 / (T * K), dtype=torch.float32,
                             device=dev))
     aux = E * torch.sum(me * ce)
@@ -119,17 +127,20 @@ def moe(params, x, *, n_experts: int, topk: int, capacity_factor: float = 1.25,
     rows = E * Cg + 1
     buf = torch.zeros((G * rows, d), dtype=x.dtype, device=dev)
     gdst = (dst + rows * torch.arange(G, device=dev)[:, None]).reshape(-1)
-    buf[gdst] = xg[:, src_tok].reshape(G * n, d)
+    buf = buf.index_put((gdst,), xg[:, src_tok].reshape(G * n, d))
     xe = buf.view(G, rows, d)[:, :-1].reshape(G, E, Cg, d)
+    xe = shard(xe, (BATCH, None, None, None))
 
     # expert computation (batched SwiGLU), one product per expert over all
     # groups' slots
     xe_e = xe.transpose(0, 1).reshape(E, G * Cg, d)
-    g_ = torch.bmm(xe_e, params["wg"])
-    i_ = torch.bmm(xe_e, params["wi"])
+    g_ = torch.bmm(xe_e, gather_dp(params["wg"]))
+    i_ = torch.bmm(xe_e, gather_dp(params["wi"]))
     h = (torch.nn.functional.silu(g_.to(torch.float32))
          * i_.to(torch.float32)).to(x.dtype)
-    ye = torch.bmm(h, params["wo"]).reshape(E, G, Cg, d).transpose(0, 1)
+    ye = torch.bmm(h, gather_dp(params["wo"])).reshape(E, G, Cg, d
+                                                      ).transpose(0, 1)
+    ye = shard(ye, (BATCH, None, None, None))   # reverse exchange to dp
 
     # combine
     flat_y = torch.cat([ye.reshape(G, E * Cg, d),

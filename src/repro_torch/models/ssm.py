@@ -17,6 +17,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..launch.mesh import split_heads
 from .common import DP, TP, ParamDef, dense, rms_norm
 
 
@@ -201,9 +202,9 @@ def mlstm_block(params, x, cfg, state=None, *, chunk: int = 128):
     up = dense(h, params["up_proj"])
     xm, z = torch.chunk(up, 2, dim=-1)
 
-    q = _scale(dense(xm, params["wq"]).reshape(B, S, H, dh), math.sqrt(dh))
-    k = _scale(dense(xm, params["wk"]).reshape(B, S, H, dh), math.sqrt(dh))
-    v = dense(xm, params["wv"]).reshape(B, S, H, dh)
+    q = _scale(split_heads(dense(xm, params["wq"]), H), math.sqrt(dh))
+    k = _scale(split_heads(dense(xm, params["wk"]), H), math.sqrt(dh))
+    v = split_heads(dense(xm, params["wv"]), H)
     gates = dense(xm, params["wif"]).to(torch.float32)
     i_gate = torch.exp(torch.minimum(gates[..., :H], _const(4.0, gates)))
     log_f = F.logsigmoid(gates[..., H:])                       # [B,S,H]

@@ -15,6 +15,11 @@ layer lists).  Adafactor's statistics and its update clipping reach across
 a stacked leaf, so it works on JAX's stacked leaves (``stacked``): its
 state ``{"f": ...}`` has JAX's structure and shapes, and each stacked
 update is written back into the per-layer tensors.
+
+Over DTensors (parameters laid out on a mesh, ``launch.mesh``) ``init``
+lays the state out as the parameters are: AdamW's moments with their
+placements, Adafactor's statistics with the placements of the stacked
+leaf on the dimensions they keep (``models.api.opt_state_pspecs``).
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ import math
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 from ..tree import flatten_with_path, leaves, tree_map
 
@@ -87,10 +94,44 @@ class Stack:
             return self.parts[0]
         return torch.stack(self.parts).reshape(self.shape)
 
+    def placements(self, drop=None) -> list:
+        """Over DTensor parts: the placements of the stacked leaf, less
+        its dimension ``drop`` (a split dimension that goes is
+        replicated)."""
+        nd = len(self.shape)
+        gone = None if drop is None else drop % nd
+        out = []
+        for q in self.parts[0].placements:
+            d = q.dim + len(self.lead) if isinstance(q, Shard) else None
+            if d is None or d == gone:
+                out.append(Replicate())
+            else:
+                out.append(Shard(d - (gone is not None and d > gone)))
+        return out
+
     def assign(self, new: torch.Tensor) -> None:
+        if not self.lead:
+            self.parts[0].copy_(new)
+            return
+        if isinstance(new, DTensor):   # the parts' layout, layers whole
+            new = new.redistribute(new.device_mesh, self.placements())
         for t, n in zip(self.parts, new.reshape((-1,) + self.shape[
                 len(self.lead):])):
             t.copy_(n)
+
+
+def _stat_zeros(s: Stack, drop) -> torch.Tensor:
+    """f32 zeros of the stacked shape ``s.shape`` less dimension ``drop``
+    (``None`` drops none), on the parts' device; over DTensor parts laid
+    out as the stacked leaf on the dimensions kept."""
+    gone = None if drop is None else drop % len(s.shape)
+    shape = [n for i, n in enumerate(s.shape) if i != gone]
+    p = s.parts[0]
+    if not isinstance(p, DTensor):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    return dtensor_zeros(shape, dtype=torch.float32,
+                         device_mesh=p.device_mesh,
+                         placements=s.placements(drop))
 
 
 def _zip(items: list):
@@ -130,8 +171,7 @@ class AdamW:
     clip: float = 1.0
 
     def init(self, params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device)
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
         return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
 
     @torch.no_grad()
@@ -168,13 +208,9 @@ class Adafactor:
 
     def init(self, params):
         def per(s: Stack):
-            dev = s.parts[0].device
-            z = lambda shape: torch.zeros(shape, dtype=torch.float32,
-                                          device=dev)
             if self._factored(s.shape):
-                return {"vr": z(s.shape[:-1]),
-                        "vc": z(s.shape[:-2] + s.shape[-1:])}
-            return {"v": z(s.shape)}
+                return {"vr": _stat_zeros(s, -1), "vc": _stat_zeros(s, -2)}
+            return {"v": _stat_zeros(s, None)}
         return {"f": tree_map(per, stacked(params))}
 
     @torch.no_grad()

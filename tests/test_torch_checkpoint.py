@@ -4,9 +4,8 @@
 tests/test_checkpoint_runtime.py, checkpoints read across the two packages
 bit for bit, the orchestrator's losses against JAX's across an injected
 failure (within 1e-5 relative), and the launcher's failure drill on the
-CPU.  The elastic restore onto a new mesh (JAX's
-``test_elastic_restore_new_mesh``) waits for the port's model-mesh layout
-helpers: the port refuses it, and a test holds that."""
+CPU, and the elastic restore onto a new mesh (JAX's
+``test_elastic_restore_new_mesh``) over a fake process group."""
 import os
 import subprocess
 import sys
@@ -65,14 +64,35 @@ def test_atomic_publish_never_partial(tmp_path):
     assert ckpt.latest(str(tmp_path)) == 1
 
 
-def test_restore_onto_a_mesh_is_refused(tmp_path):
-    """JAX's elastic re-mesh restore waits for the port's model-mesh
-    layout helpers: the port says so instead of ignoring the mesh."""
-    tree = {"w": torch.arange(16.0).reshape(4, 4)}
+@pytest.mark.parametrize("dims", [(1, 1), (4, 2)])
+def test_restore_onto_a_mesh_lays_out_the_specs(tmp_path, dims):
+    """JAX's ``test_elastic_restore_new_mesh``: a checkpoint written with
+    no mesh, restored onto a (1, 1) mesh and onto a (4, 2) one (rank 0 of
+    a fake process group of 8): every leaf a DTensor with its spec's
+    placements, this rank's shard the saved tensor's chunk bit for bit
+    (a bf16 leaf too)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as tmesh
+    tree = {"w": torch.arange(64.0).reshape(8, 8),
+            "b": torch.arange(8.0).to(torch.bfloat16), "n": torch.ones(3)}
+    specs = {"w": ("dp", "tp"), "b": ("tp",), "n": None}
     ckpt.save(str(tmp_path), 5, tree)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ckpt.restore(str(tmp_path), 5, tree, device=CPU, mesh=object(),
-                     spec_tree={"w": ("dp", "tp")})
+    with dryrun.fake_world(dims[0] * dims[1]):
+        mesh = tmesh.make_host_mesh(*dims, device_type=CPU)
+        got, _ = ckpt.restore(str(tmp_path), 5, tree, mesh=mesh,
+                              spec_tree=specs)
+        for k, want in tree.items():
+            pl = tmesh.placements(mesh, specs[k])
+            assert isinstance(got[k], DTensor), k
+            assert list(got[k].placements) == pl, k
+            assert got[k].shape == want.shape and got[k].dtype == want.dtype
+            mine = distribute_tensor(want, mesh, pl, src_data_rank=None)
+            assert torch.equal(got[k].to_local(), mine.to_local()), k
+        assert dryrun._mesh_shape(got["w"].device_mesh) == {
+            "data": dims[0], "model": dims[1]}
+        with pytest.raises(ValueError, match="both"):
+            ckpt.restore(str(tmp_path), 5, tree, mesh=mesh)
 
 
 def test_prune(tmp_path):

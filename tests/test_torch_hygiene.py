@@ -13,7 +13,7 @@ from repro_torch import configs
 from repro_torch.core import expertplane, kvplane, state
 from repro_torch.core.layout import PlaneConfig
 from repro_torch.checkpoint import ckpt
-from repro_torch.launch import serve, train
+from repro_torch.launch import dryrun, serve, train
 from repro_torch.models import api
 from repro_torch.serving.engine import Engine, EngineConfig
 
@@ -57,7 +57,8 @@ def test_port_package_is_complete():
                 "optim/accumulation.py", "optim/compression.py",
                 "data/synthetic.py", "data/pipeline.py",
                 "checkpoint/ckpt.py", "runtime/orchestrator.py",
-                "launch/train.py"):
+                "launch/train.py", "launch/dryrun.py",
+                "analysis/analytic.py"):
         assert (port / mod).exists(), mod
         assert (jaxpkg / mod).exists(), mod
     for src in ("gather_rows.cu", "compact_pages.cu", "cat_decay.cu",
@@ -91,7 +92,9 @@ def test_entry_points_default_to_cuda(tmp_path):
                                  "--batch", "1"]),
              lambda: train.main(["--smoke", "--steps", "1", "--ckpt-dir",
                                  str(tmp_path / "run")]),
-             lambda: ckpt.restore(str(tmp_path), 0, {"w": torch.zeros(2)})]
+             lambda: ckpt.restore(str(tmp_path), 0, {"w": torch.zeros(2)}),
+             lambda: dryrun.run_cell("llama3-8b", "train_4k", "single",
+                                     layers_override=2)]
     if torch.cuda.is_available():
         assert state.create(CFG, torch.from_numpy(data)).slab.is_cuda
         return

@@ -14,6 +14,8 @@ shard's whole state to the oracle's bit for bit:
   and accesses on the paging and object planes;
 * ``jitted_access_degmask`` with a mask that trips shard 0, then an
   all-False one;
+* ``phase_probe`` (both phases, with and without spills) against the
+  loop oracle's checksums;
 * the KV plane's ``jitted_sharded_decode`` against the loop decode;
 * ``Engine(shards=S, group=...)`` against the loop engine, with the fault
   schedule and the per-shard breaker: every tick's rows (whole on every
@@ -180,6 +182,22 @@ def check_plane(g, S, me):
         _same_state(sm[me], so[me], f"degmask t={t}")
 
 
+def check_probe(g, S, me):
+    """phase_probe through the group == this rank's entry of the loop
+    oracle's checksums, both phases, with and without spills."""
+    from repro_torch.core import shardplane as sp
+    from repro_torch.core.layout import PlaneConfig
+    rng = np.random.default_rng(11)
+    for budget in (None, 3):
+        cfg = sp.make_config(PlaneConfig(**PLANE), S, R, budget)
+        ids = _ids(rng, S, pad=True)
+        for phase in ("pack", "ingress"):
+            want = sp.phase_probe(cfg, phase)(ids)
+            got = sp.phase_probe(cfg, phase, g)(ids)
+            assert got.shape == (1,) and int(got[0]) == int(want[me]), \
+                (phase, budget, got, want)
+
+
 def check_kv_decode(g, S, me):
     """jitted_sharded_decode through the group == the loop decode."""
     from repro_torch.core import kvplane as kv
@@ -259,6 +277,7 @@ def _rank_main(rank: int, world: int, init: str) -> None:
         with pytest.raises(ValueError, match="ranks"):
             mesh.make_far_group(world + 1)
         check_plane(g, world, rank)
+        check_probe(g, world, rank)
         check_kv_decode(g, world, rank)
         check_engine(g, world, rank)
         dist.barrier()
