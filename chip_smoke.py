@@ -164,12 +164,26 @@ Every paged_attention launch of 11 to 18 is on the tensor cores.
               of the largest; ms per step of each; ckpt.restore(mesh=,
               spec_tree=param_pspecs) of those parameters bit for bit with
               the resolved placements
-25. dryrun    launch.dryrun.run_cell on fake cuda meshes at full width, 2
-              of 32 layers: llama3-8b train_4k on 16 x 16 (256 fake ranks)
-              and 2 x 16 x 16 (512), prefill_32k on 16 x 16: argument
-              bytes a device against the arithmetic, FLOPs a device beside
-              the analytic model's, collectives by kind, MemTracker's
-              peak, the trace's seconds; gradient sync in the train cells
+25. meshdecode the serve step on a model mesh on the card: llama3-8b at
+              full width, 8 of its 32 layers, bf16, parameters on a (1, 1)
+              ("data", "model") mesh of an NCCL group of one rank and the
+              serve state laid out by api.serve_state_on_mesh; dense
+              decode (as 13: 8 sequences, 2,048 seeded tokens of context)
+              and long_500k through the sparse plane at shards = dp = 1,
+              8 greedy steps each on the mesh and on the plain path from
+              the same state: logits within 1e-5 of the largest, every
+              int and bool plane field bit for bit after
+              api.serve_state_whole, kernel launches equal (8
+              paged_attention a dense step; 8 page_scores and 16
+              gather_rows a long step); ms a step both ways
+26. dryrun    launch.dryrun.run_cell on fake cuda meshes at full width, 2
+              layers: llama3-8b train_4k on 16 x 16 (256 fake ranks) and
+              2 x 16 x 16 (512), prefill_32k, decode_32k and long_500k on
+              16 x 16, kimi-k2 decode_32k on 16 x 16: argument bytes a
+              device (llama3-8b's against the arithmetic), FLOPs a device
+              beside the analytic model's, collectives by kind,
+              MemTracker's peak, the trace's seconds; gradient sync in the
+              train cells, the sparse combine's all-gathers in long_500k
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA GPU and the repository's
@@ -309,10 +323,20 @@ FAM_GRAD_AGREE = 1e-3
 # (16 x 16) or 512 (2 x 16 x 16)
 LAYOUT_LAYERS, LAYOUT_SEQ, LAYOUT_BATCH, LAYOUT_STEP = 2, 2048, 2, 10
 LAYOUT_TOL = 1e-5
+# [meshdecode]: llama3-8b at full width cut to 8 of its 32 layers, bf16, the
+# serve step on a (1, 1) mesh of an NCCL group of one rank against the
+# plain step from the same state: dense decode as [lm] (8 sequences, 2,048
+# tokens of context in a 4,096-token plane) and long_500k through the
+# sparse plane at shards = dp = 1 from LONG_FROM tokens, MESHDEC_STEPS
+# greedy steps each way; logits within LAYOUT_TOL of the largest
+MESHDEC_LAYERS, MESHDEC_STEPS = 8, 8
 DRYRUN_LAYERS = 2
 DRYRUN_CELLS = (("llama3-8b", "train_4k", "single"),
                 ("llama3-8b", "train_4k", "multi"),
-                ("llama3-8b", "prefill_32k", "single"))
+                ("llama3-8b", "prefill_32k", "single"),
+                ("llama3-8b", "decode_32k", "single"),
+                ("llama3-8b", "long_500k", "single"),
+                ("kimi-k2-1t-a32b", "decode_32k", "single"))
 
 
 def log(msg: str) -> None:
@@ -2843,8 +2867,9 @@ def phase_lm_expert(torch, ops, ref, configs, api, ep, convert, card: str,
     needed[torch.randperm(E, generator=g, device=dev)[:60]] = True
     plan = ep.plan_fetch(epc, ex, needed)
     n_fetch = int((plan.expert >= 0).sum())
-    f_ms = device_ms(torch, lambda: ep._exec_fetch_batch(
-        epc, ex, plan, mp["wi"], mp["wg"], mp["wo"]), n=10, rounds=3)
+    src = ep._slab_sources(plan, (mp["wi"], mp["wg"], mp["wo"]))
+    f_ms = device_ms(torch, lambda: ep._exec_fetch_batch(epc, ex, plan, src),
+                     n=10, rounds=3)
     fb = 3 * 2 * n_fetch * D * 2
     f_bnd = bound(fb, 0, rate, PEAK_BF16)
     del ex
@@ -3885,31 +3910,225 @@ def phase_mesh_layout(torch, m, T, card: str) -> dict:
             "launches": launches}
 
 
+def meshdec_config(configs):
+    """[meshdecode]: llama3-8b at full width, MESHDEC_LAYERS of its 32."""
+    return configs.get_config("llama3-8b").scaled(n_layers=MESHDEC_LAYERS)
+
+
+def field_err(torch, x, y) -> tuple[bool, float]:
+    """(x and y finite at the same places, the largest |x - y| there over
+    the largest finite |y|), one slice of the first dimension at a time
+    (a long_500k slab is 1 GB a field)."""
+    if torch.equal(x, y):
+        return True, 0.0
+    same, err, top = True, 0.0, 0.0
+    for a, b in zip(x, y):
+        a, b = a.float(), b.float()
+        fin = torch.isfinite(b)
+        same &= bool(torch.equal(fin, torch.isfinite(a)))
+        zero = torch.zeros((), device=b.device)
+        err = max(err, float(torch.where(fin, a - b, zero).abs().max()))
+        top = max(top, float(torch.where(fin, b, zero).abs().max()))
+    return same, err / max(top, 1e-30)
+
+
+def plane_fields_match(torch, api, cfg, shape, got, want, shards: int):
+    """Every KV plane of two serve states of one cell, in their logical
+    views: (every int and bool field equal, the worst float field's error
+    over its largest |value|, the number of fields compared)."""
+    kvc, _ = api.kv_plan(cfg, shape, shards)
+    same, worst, n = True, 0.0, 0
+    for a, b in zip(kv_planes(got), kv_planes(want)):
+        for k in a._fields:
+            x, y = a.view(kvc, k), b.view(kvc, k)
+            n += 1
+            if x.is_floating_point():
+                fin, err = field_err(torch, x, y)
+                same &= fin
+                worst = max(worst, err)
+            else:
+                same &= bool(torch.equal(x, y))
+    return same, worst, n
+
+
+def logged_run(torch, ops, step, params, state, tok, steps: int, tag: str,
+               want: dict, as_input=lambda t: t):
+    """``steps`` greedy steps with the launch counts set to 0 just before
+    and read just after, as counted_run counts them (each kernel of
+    ``want`` exactly that many times a step, every other never); returns
+    (state, each step's logits whole, ms a step, launches)."""
+    from torch.distributed.tensor import DTensor
+    ops.reset_launch_counts()
+    logits_all, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, logits = step(params, state, as_input(tok))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if isinstance(logits, DTensor):
+            logits = logits.full_tensor()
+        logits_all.append(logits)
+        tok = logits.argmax(dim=-1).to(torch.int32)
+    launches = ops.launch_counts()
+    for k in ("gather_rows", "compact_pages", "cat_decay", "page_scores",
+              "paged_attention", "cat_update"):
+        check(launches[k] == want.get(k, 0) * steps,
+              f"[{tag}] {k} launched {launches[k]} times in {steps} steps, "
+              f"{want.get(k, 0)} a step wanted: {launches}")
+    check(launches["paged_attention_mma"] == launches["paged_attention"],
+          f"[{tag}] {launches['paged_attention_mma']} of "
+          f"{launches['paged_attention']} paged_attention launches on the "
+          f"tensor cores")
+    check(all(bool(torch.isfinite(x).all()) for x in logits_all),
+          f"[{tag}] non-finite logits")
+    return state, logits_all, ms, launches
+
+
+def phase_mesh_decode(torch, m, configs, api, card: str) -> dict:
+    """The serve step on a model mesh on the card: llama3-8b at full
+    width, MESHDEC_LAYERS layers, bf16, seeded weights, parameters laid out
+    on a (1, 1) ("data", "model") mesh over an NCCL group of one rank and
+    the serve state by ``api.serve_state_on_mesh``.  Dense decode (as
+    [lm]: 8 sequences, 2,048 seeded tokens of context) and long_500k
+    (shards = dp = 1, each layer's sparse plane filled as [kvsparse]),
+    MESHDEC_STEPS greedy steps on the mesh and on the plain path from the
+    same state: logits within LAYOUT_TOL of the largest each step; every
+    int and bool field of every plane bit for bit, floats within
+    LAYOUT_TOL, after ``serve_state_whole``; the mesh step's kernel
+    launches equal the plain step's (paged_attention on the dense step;
+    page_scores and gather_rows on the sparse one); ms a step both ways.
+    Returns the mesh steps' launches."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    M = m.mesh
+    dev = torch.device("cuda")
+    cfg = meshdec_config(configs)
+    t0 = time.time()
+    params = api.init_params(cfg, seed=SEED + 27, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 28)
+    M.init_far(0, 1, f"tcp://localhost:{free_port()}")
+    out = {}
+    try:
+        mesh = M.make_host_mesh(1, 1, device_type="cuda")
+        dparams = M.distribute_tree(params, mesh, api.param_pspecs(cfg))
+        cells = (("dense", configs.ShapeConfig("serve", LM_SEQ, LM_BATCH,
+                                               "decode"), LM_PREFIX,
+                  {"paged_attention": cfg.n_layers}),
+                 ("long_500k", configs.ShapeConfig("long", LONG_SEQ, 1,
+                                                   "decode_long"), LONG_FROM,
+                  {"page_scores": cfg.n_layers,
+                   "gather_rows": 2 * cfg.n_layers}))
+        for name, shape, prefix, want in cells:
+            kvc, mode = api.kv_plan(cfg, shape, 1)
+            state = api.init_decode_state(cfg, shape, shards=1, device=dev)
+            if mode == "sparse":
+                for p in kv_planes(state):
+                    fill_sparse_slab(torch, kvc, p, g)
+                state.lengths.fill_(prefix)
+            else:
+                fill_kv_prefix(torch, state, g, prefix)
+            tok = torch.randint(0, cfg.vocab, (shape.global_batch,),
+                                generator=g, device=dev, dtype=torch.int32)
+            mstate = api.serve_state_on_mesh(cfg, shape, state.clone(), mesh,
+                                             1)
+            torch.cuda.synchronize()
+            step = api.decode_step(cfg, shape, shards=1)
+            tag = f"meshdecode {name}"
+            state, want_logits, ms_plain, l_plain = logged_run(
+                torch, m.ops, step, params, state, tok, MESHDEC_STEPS, tag,
+                want)
+            tok_spec = api.batch_specs(cfg, shape)["tokens"][1]
+            with M.use_mesh(mesh), implicit_replication():
+                mstate, got_logits, ms_mesh, l_mesh = logged_run(
+                    torch, m.ops, step, dparams, mstate, tok, MESHDEC_STEPS,
+                    tag, want, lambda t: M.distribute(t, mesh, tok_spec))
+            worst = max(rel_err(a, b) for a, b in zip(got_logits,
+                                                      want_logits))
+            check(worst <= LAYOUT_TOL,
+                  f"[{tag}] the mesh step's logits are {worst:.3g} of the "
+                  f"largest off the plain step's")
+            whole = api.serve_state_whole(cfg, shape, mstate, mesh, 1)
+            same, fworst, n = plane_fields_match(torch, api, cfg, shape,
+                                                 whole, state, 1)
+            check(same, f"[{tag}] an int or bool plane field differs")
+            check(fworst <= LAYOUT_TOL,
+                  f"[{tag}] a float plane field is {fworst:.3g} off")
+            check(bool(torch.equal(whole.lengths, state.lengths)),
+                  f"[{tag}] lengths differ")
+            check(l_mesh == l_plain, f"[{tag}] launches on the mesh {l_mesh} "
+                                     f"against {l_plain} plain")
+            pm, mm = statistics.median(ms_plain[1:]), statistics.median(
+                ms_mesh[1:])
+            log(f"[{tag}] llama3-8b {cfg.n_layers} of 32 layers at full "
+                f"width, bf16, {mode} plane{'s' if mode == 'dense' else ''} "
+                f"({shape.global_batch} x {shape.seq_len} tokens, from "
+                f"{prefix}): {MESHDEC_STEPS} greedy steps on a (data 1, "
+                f"model 1) mesh of an NCCL group of one rank == the plain "
+                f"step: logits within {worst:.3g} of the largest (tolerance "
+                f"{LAYOUT_TOL}), {n} plane fields (ints and bools bit for "
+                f"bit, floats within {fworst:.3g}); ms a step plain "
+                f"{pm:.3f} (first {ms_plain[0]:.1f}), on the mesh {mm:.3f} "
+                f"(first {ms_mesh[0]:.1f}); launches a step "
+                f"{ {k: v / MESHDEC_STEPS for k, v in l_mesh.items() if v} } "
+                f"both ways [{card}]")
+            out[name] = {"ms_plain": pm, "ms_mesh": mm, "launches": l_mesh,
+                         "logit_err": worst}
+            del state, mstate, whole
+            torch.cuda.empty_cache()
+    finally:
+        m.dist.destroy_process_group()
+        del params
+        torch.cuda.empty_cache()
+    launches = {k: out["dense"]["launches"][k] + out["long_500k"][
+        "launches"][k] for k in out["dense"]["launches"]}
+    log(f"[meshdecode] took {time.time() - t0:.1f}s [{card}]")
+    return {"cells": out, "launches": launches}
+
+
 def phase_dryrun(torch, card: str) -> None:
     """The port's dry-run (``launch.dryrun.run_cell``) on fake ``cuda``
     meshes at full width, 2 of 32 layers, for DRYRUN_CELLS: the argument
-    bytes a device (against the arithmetic: each 2-D parameter split over
-    every chip, the norms whole), the FLOPs a device beside the analytic
-    model's, the collectives by kind, MemTracker's peak and the trace's
-    seconds; gradient sync in the train cells."""
-    from repro_torch.launch import dryrun
+    bytes a device (llama3-8b's against the arithmetic: each 2-D parameter
+    split over every chip, the norms whole), the FLOPs a device beside the
+    analytic model's, the collectives by kind, MemTracker's peak and the
+    trace's seconds; gradient sync in the train cells; in the long_500k
+    cell the sparse combine's three all-gathers over dp a layer."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, mesh
     from repro_torch.models import api
     from repro_torch.tree import leaves
+    real = mesh.all_gather
+    gathers = []
+
+    def spy(x, m, logical="dp"):
+        gathers.append(logical)
+        return real(x, m, logical)
     for arch, sname, kind in DRYRUN_CELLS:
-        rec = dryrun.run_cell(arch, sname, kind,
-                              layers_override=DRYRUN_LAYERS, device="cuda")
+        gathers.clear()
+        mesh.all_gather = spy
+        try:
+            rec = dryrun.run_cell(arch, sname, kind,
+                                  layers_override=DRYRUN_LAYERS,
+                                  device="cuda")
+        finally:
+            mesh.all_gather = real
         check(rec["status"] == "ok", f"[dryrun] {arch} {sname} {kind}: "
                                      f"{rec.get('error')}\n"
                                      f"{rec.get('traceback', '')}")
         chips = 512 if kind == "multi" else 256
         cfg, shape = dryrun.cell_config(arch, sname, DRYRUN_LAYERS)
-        pbytes = sum(x.numel() * x.element_size() / (chips if x.dim() == 2
-                                                     else 1)
-                     for x in leaves(api.param_shapes(cfg)))
         ab = rec["arg_bytes_per_device"]
-        check(ab["params"]["device"] == pbytes,
-              f"[dryrun] parameter bytes {ab['params']['device']} against "
-              f"{pbytes}")
+        if arch == "llama3-8b":
+            pbytes = sum(x.numel() * x.element_size() / (chips if x.dim() == 2
+                                                         else 1)
+                         for x in leaves(api.param_shapes(cfg)))
+            check(ab["params"]["device"] == pbytes,
+                  f"[dryrun] parameter bytes {ab['params']['device']} "
+                  f"against {pbytes}")
+            arith = f" (params {pbytes:,.0f} == the arithmetic)"
+        else:
+            arith = f" (params {ab['params']['device']:,.0f})"
         flops = rec["cost_analysis"]["flops"]
         model = rec["analytic"]["flops_per_chip"]
         coll = rec["collectives"]
@@ -3919,18 +4138,29 @@ def phase_dryrun(torch, card: str) -> None:
         if shape.kind == "train":
             check(coll["all-reduce"]["count"] + coll["reduce-scatter"][
                 "count"] > 0, "[dryrun] no gradient sync in a train cell")
+        combine = ""
+        if shape.kind == "decode_long":
+            check(gathers == ["dp"] * 3 * DRYRUN_LAYERS
+                  and coll["all-gather"]["count"] >= len(gathers),
+                  f"[dryrun] the sparse combine all-gathered {gathers}, "
+                  f"{coll['all-gather']['count']} all-gathers in all")
+            combine = (f"; the sparse combine's {len(gathers)} all-gathers "
+                       f"over dp (acc, m, l a layer)")
+        else:
+            check(gathers == [], f"[dryrun] all-gathers {gathers} outside "
+                                 "a sparse cell")
         mem = rec["memory"]
         log(f"[dryrun] {arch} {sname} on {kind} {rec['mesh_shape']}, "
-            f"{DRYRUN_LAYERS} of 32 layers: argument bytes a device "
-            f"{ab['total']['device']:,.0f} (params {pbytes:,.0f} == the "
-            f"arithmetic), host_tier {ab['total']['host_tier']:,.0f}; "
-            f"FLOPs a device {flops:.4g} traced, {model:.4g} analytic "
-            f"(ratio {flops / model:.3f}); collectives {by_kind} (count, "
-            f"wire bytes); MemTracker peak {mem['Total']:,} B (Parameter "
-            f"{mem['Parameter']:,}, Other {mem['Other']:,}, Activation "
-            f"{mem['Activation']:,}, Temp {mem['Temp']:,}); traced in "
-            f"{rec['trace_s']}s ({rec['total_s']}s with the fake group) "
-            f"[{card}]")
+            f"{DRYRUN_LAYERS} of {configs.get_config(arch).n_layers} layers: "
+            f"argument bytes a device {ab['total']['device']:,.0f}{arith}, "
+            f"host_tier "
+            f"{ab['total']['host_tier']:,.0f}; FLOPs a device {flops:.4g} "
+            f"traced, {model:.4g} analytic (ratio {flops / model:.3f}); "
+            f"collectives {by_kind} (count, wire bytes){combine}; MemTracker "
+            f"peak {mem['Total']:,} B (Parameter {mem['Parameter']:,}, Other "
+            f"{mem['Other']:,}, Activation {mem['Activation']:,}, Temp "
+            f"{mem['Temp']:,}); traced in {rec['trace_s']}s "
+            f"({rec['total_s']}s with the fake group) [{card}]")
 
 
 def port_modules():
@@ -4166,8 +4396,13 @@ def main() -> int:
     pre = phase_prefill(torch, ops, T, card)
     t_mesh = time.time()
     lay = phase_mesh_layout(torch, M, T, card)
+    t_dec = time.time()
+    mdec = phase_mesh_decode(torch, M, configs, api, card)
+    t_dry = time.time()
     phase_dryrun(torch, card)
-    log(f"[meshlayout] [dryrun] took {time.time() - t_mesh:.1f}s [{card}]")
+    log(f"[meshlayout] [meshdecode] [dryrun] took {time.time() - t_mesh:.1f}s "
+        f"([meshdecode] {t_dry - t_dec:.1f}s, [dryrun] "
+        f"{time.time() - t_dry:.1f}s) [{card}]")
     log(f"[train] summary: llama3-8b {TRAIN_LAYERS} layers f32, batch "
         f"{TRAIN_BATCH} x {TRAIN_SEQ}: {trn['step_ms']:.1f} ms per step, "
         f"{trn['tokens_per_s']:,.0f} tokens/s, peak "
@@ -4182,7 +4417,8 @@ def main() -> int:
             "lmssm": ssm["launches"], "lmhybrid": hyb["launches"],
             "lmhybrid_long": hyb["long_launches"],
             "lmencdec": encd["launches"], "train": trn["launches"],
-            "prefill": pre["launches"], "meshlayout": lay["launches"]}
+            "prefill": pre["launches"], "meshlayout": lay["launches"],
+            "meshdecode": mdec["launches"]}
     for k in kernels:
         if k["name"] in ("page_scores", "paged_attention", "cat_update"):
             # cat_update is on no runtime path, in the JAX package either

@@ -29,6 +29,12 @@ Where the port departs from the JAX form, and why:
 * **No ``lax.cond``/``fori_loop``.**  The reference executor runs a static
   trip count of masked updates; nothing on either path syncs with the
   host.
+* **On a model mesh** each rank keeps a local plane (its d_model chunk of
+  the hot store, a copy of the bookkeeping; see the section below).  The
+  fetch reaches the row-copy kernel there too: where the slab's split
+  differs from the hot store's (the experts or d_ff split over "model"),
+  the plan's rows are exchanged first and the kernel copies them from
+  that exchanged pool.
 """
 from __future__ import annotations
 
@@ -36,8 +42,10 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..kernels import ops as kops
+from ..launch import mesh as far
 from . import state as st
 from .batch import stable_order
 from .paths import INF32, put, take
@@ -148,24 +156,23 @@ def plan_fetch(cfg: ExpertPlaneConfig, s: ExpertPlaneState,
 
 
 def _exec_fetch_batch(cfg: ExpertPlaneConfig, s: ExpertPlaneState,
-                      plan: ExpertFetchPlan, slab_wi, slab_wg, slab_wo
-                      ) -> ExpertPlaneState:
+                      plan: ExpertFetchPlan, sources) -> ExpertPlaneState:
     """The plan with batched data movement: every expert's weights arrive
-    in ONE ``kernels.gather_rows_into`` call per tensor (one expert is one
-    pool row), written straight into its victim slot of the hot store.
-    Fetched experts are missing and displaced ones resident (disjoint ids),
-    victim slots distinct.  As in JAX, a -1 entry still gathers expert 0's
-    row, which lands in the trash slot (JAX drops it).  The slabs must
-    hold the hot store's dtype: ``gather_rows_into`` refuses a mismatch."""
+    in ONE ``kernels.gather_rows_into`` call per tensor, written straight
+    into its victim slot of the hot store.  ``sources`` gives, for each of
+    hot_wi/hot_wg/hot_wo, the row pool and the pool row of each plan entry
+    (``_slab_sources``: the slab itself, one expert a row).  Fetched
+    experts are missing and displaced ones resident (disjoint ids), victim
+    slots distinct.  As in JAX, a -1 entry still gathers expert 0's row,
+    which lands in the trash slot (JAX drops it).  The pools must hold the
+    hot store's dtype: ``gather_rows_into`` refuses a mismatch."""
     E, S = cfg.n_experts, cfg.hot_slots
     e, slot = plan.expert, plan.slot
     ok = e >= 0
-    safe_e = e.clamp_min(0)
     sdst = torch.where(ok, slot, S)                      # trash slot = drop
-    for hot, slab in ((s.hot_wi, slab_wi), (s.hot_wg, slab_wg),
-                      (s.hot_wo, slab_wo)):
-        kops.gather_rows_into(hot.view(S + 1, -1), sdst, slab.reshape(E, -1),
-                              safe_e, impl=cfg.kernel_impl)
+    for hot, (pool, idx) in zip((s.hot_wi, s.hot_wg, s.hot_wo), sources):
+        kops.gather_rows_into(hot.view(S + 1, -1), sdst, pool, idx,
+                              impl=cfg.kernel_impl)
     old = s.expert_of[slot]
     put(s.slot_of, torch.where(ok & (old >= 0), old, E), -1)
     s.slot_of[torch.where(ok, e, E)] = slot
@@ -175,46 +182,56 @@ def _exec_fetch_batch(cfg: ExpertPlaneConfig, s: ExpertPlaneState,
 
 
 def _exec_fetch_reference(cfg: ExpertPlaneConfig, s: ExpertPlaneState,
-                          plan: ExpertFetchPlan, slab_wi, slab_wg, slab_wo
-                          ) -> ExpertPlaneState:
+                          plan: ExpertFetchPlan, sources) -> ExpertPlaneState:
     """Scalar oracle: the identical plan one expert at a time, each a
     masked update (a masked-off write lands in a trash row)."""
     S = cfg.hot_slots
+    hots = (s.hot_wi, s.hot_wg, s.hot_wo)
     for i in range(cfg.fetch_budget):
         e, slot = plan.expert[i], plan.slot[i]
         do = e >= 0
         old = take(s.expert_of, slot)
         put(s.slot_of, old, -1, do & (old >= 0))
-        src = e.clamp_min(0).reshape(1).long()
         dst = torch.where(do, slot, S).reshape(1).long()
-        s.hot_wi[dst] = slab_wi.index_select(0, src).to(cfg.dtype)
-        s.hot_wg[dst] = slab_wg.index_select(0, src).to(cfg.dtype)
-        s.hot_wo[dst] = slab_wo.index_select(0, src).to(cfg.dtype)
+        for hot, (pool, idx) in zip(hots, sources):
+            row = pool.index_select(0, idx[i:i + 1].long())
+            hot[dst] = row.view((1,) + tuple(hot.shape[1:])).to(cfg.dtype)
         put(s.slot_of, e, slot, do)
         put(s.expert_of, slot, e, do)
         put(s.clock, slot, s.step, do)
     return s
 
 
+def _slab_sources(plan: ExpertFetchPlan, slabs) -> list:
+    """Each slab as a pool of one expert a row, and each plan entry's
+    expert (0 for a -1 entry)."""
+    safe_e = plan.expert.clamp_min(0)
+    return [(w.reshape(w.shape[0], -1), safe_e) for w in slabs]
+
+
 def ensure_resident(cfg: ExpertPlaneConfig, s: ExpertPlaneState,
                     needed_mask: torch.Tensor, slab_wi, slab_wg, slab_wo,
-                    *, mode: str | None = None) -> ExpertPlaneState:
+                    *, mode: str | None = None, sources=_slab_sources
+                    ) -> ExpertPlaneState:
     """Fetch up to ``fetch_budget`` missing needed experts (plan-then-
     execute).  ``mode`` selects the executor ("batch" | "reference",
-    default ``cfg.fetch_mode``); both replay the identical plan."""
+    default ``cfg.fetch_mode``); both replay the identical plan.
+    ``sources(plan, slabs)`` gives the rows the executors copy (on a mesh,
+    ``_mesh_sources``)."""
     mode = mode or cfg.fetch_mode
     if mode not in ("batch", "reference"):
         raise ValueError(f"unknown fetch mode: {mode!r}")
     plan = plan_fetch(cfg, s, needed_mask)
+    src = sources(plan, (slab_wi, slab_wg, slab_wo))
     if mode == "reference":
-        return _exec_fetch_reference(cfg, s, plan, slab_wi, slab_wg, slab_wo)
-    return _exec_fetch_batch(cfg, s, plan, slab_wi, slab_wg, slab_wo)
+        return _exec_fetch_reference(cfg, s, plan, src)
+    return _exec_fetch_batch(cfg, s, plan, src)
 
 
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched ``a @ b`` with an f32 result (``preferred_element_type=
     f32``), without an f32 copy of ``b`` on the card."""
-    if a.device.type == "cpu" or a.dtype == torch.float32:
+    if a.device.type in ("cpu", "meta") or a.dtype == torch.float32:
         return torch.bmm(a.to(torch.float32), b.to(torch.float32))
     return torch.bmm(a, b, out_dtype=torch.float32)
 
@@ -226,7 +243,24 @@ def moe_decode(cfg: ExpertPlaneConfig, s: ExpertPlaneState, router,
     Returns (y [T, d], state).  Tokens whose expert could not be made
     resident within the fetch budget are dropped for that expert (their
     gate weight is re-normalized away); so are tokens past a slot's
-    capacity."""
+    capacity.  On a current model mesh with ``x`` a DTensor, ``s`` is this
+    rank's local plane (``local_plane``) and the step runs as
+    ``_moe_decode_mesh`` says."""
+    slabs = (slab_wi, slab_wg, slab_wo)
+    mesh = far.current_mesh()
+    if mesh is not None and isinstance(x, DTensor):
+        return _moe_decode_mesh(cfg, mesh, s, router, x, slabs, mode)
+    S = cfg.hot_slots
+    y = _moe(cfg, s, router, x, slabs, mode, _slab_sources,
+             lambda: (s.hot_wi[:S], s.hot_wg[:S], s.hot_wo[:S]))
+    return y, s
+
+
+def _moe(cfg: ExpertPlaneConfig, s: ExpertPlaneState, router, x, slabs,
+         mode, sources, hot) -> torch.Tensor:
+    """The step on plain tensors: route, fetch (``ensure_resident`` with
+    ``sources``), dispatch by slot, the experts' products against the
+    hot store that ``hot()`` gives after the fetch, combine."""
     T, d = x.shape
     E, S, K = cfg.n_experts, cfg.hot_slots, cfg.topk
     C = cfg.capacity or max(8, -(-T * K * 2 // S))
@@ -241,7 +275,7 @@ def moe_decode(cfg: ExpertPlaneConfig, s: ExpertPlaneState, router,
     flat_e = expert.reshape(-1)
     needed = torch.zeros((E,), dtype=torch.bool, device=dev)
     put(needed, flat_e, True)
-    ensure_resident(cfg, s, needed, slab_wi, slab_wg, slab_wo, mode=mode)
+    ensure_resident(cfg, s, needed, *slabs, mode=mode, sources=sources)
     s.access += needed.to(I32)
     owner = s.view("expert_of")
     hosted = (owner >= 0) & needed[owner.clamp_min(0)]
@@ -264,10 +298,11 @@ def moe_decode(cfg: ExpertPlaneConfig, s: ExpertPlaneState, router,
     xe[dst] = x.to(cfg.dtype).repeat_interleave(K, dim=0)
     xe = xe[:-1].view(S, C, d)
 
-    g = _bmm_f32(xe, s.hot_wg[:S])
-    i = _bmm_f32(xe, s.hot_wi[:S])
+    hot_wi, hot_wg, hot_wo = hot()
+    g = _bmm_f32(xe, hot_wg)
+    i = _bmm_f32(xe, hot_wi)
     h = (torch.nn.functional.silu(g) * i).to(cfg.dtype)
-    ye = _bmm_f32(h, s.hot_wo[:S]).to(cfg.dtype)
+    ye = _bmm_f32(h, hot_wo).to(cfg.dtype)
     ye = torch.cat([ye.reshape(S * C, d),
                     torch.zeros((1, d), dtype=cfg.dtype, device=dev)])
 
@@ -275,4 +310,121 @@ def moe_decode(cfg: ExpertPlaneConfig, s: ExpertPlaneState, router,
     w = torch.where(keep.view(T, K), gate, 0.0)
     w = w / w.sum(dim=-1, keepdim=True).clamp_min(1e-9)
     y = torch.einsum("tkd,tk->td", yt, w)
-    return y.to(x.dtype), s
+    return y.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# the plane on a model mesh (launch.mesh)
+# --------------------------------------------------------------------------
+# JAX lays the hot store out as (None, dp, None) for hot_wi/hot_wg and
+# (None, None, dp) for hot_wo (d_model split over dp) with the bookkeeping
+# replicated.  Here each rank keeps a local plane: its chunk of d_model of
+# the hot store (rank r of dp's n ranks holds [r*d/n, (r+1)*d/n)) and a
+# whole copy of the bookkeeping.
+
+_SPLIT_DIM = {"hot_wi": 1, "hot_wg": 1, "hot_wo": 2}
+
+
+def local_plane(s: ExpertPlaneState, r: int, n: int) -> ExpertPlaneState:
+    """Rank ``r``'s plane of ``n`` dp ranks: its d_model chunk of the hot
+    store, a copy of the bookkeeping.  A new state (shares no storage with
+    ``s``)."""
+    out = {}
+    for k in ExpertPlaneState._fields:
+        x = getattr(s, k)
+        if k in _SPLIT_DIM:
+            dim = _SPLIT_DIM[k]
+            if x.shape[dim] % n:
+                raise ValueError(f"d_model {x.shape[dim]} does not split "
+                                 f"evenly over {n} data-parallel ranks")
+            c = x.shape[dim] // n
+            x = x.narrow(dim, r * c, c)
+        out[k] = x.clone(memory_format=torch.contiguous_format)
+    return ExpertPlaneState(**out)
+
+
+def concat_planes(planes: list) -> ExpertPlaneState:
+    """The whole plane from the ranks' local planes in dp order (the
+    inverse of ``local_plane``; the bookkeeping is rank 0's)."""
+    return ExpertPlaneState(**{
+        k: (torch.cat([getattr(p, k) for p in planes], _SPLIT_DIM[k])
+            if k in _SPLIT_DIM else getattr(planes[0], k).clone())
+        for k in ExpertPlaneState._fields})
+
+
+def _hot_placements(mesh) -> list:
+    return [far.placements(mesh, (None, "dp", None)),
+            far.placements(mesh, (None, "dp", None)),
+            far.placements(mesh, (None, None, "dp"))]
+
+
+def _mesh_sources(mesh, hot_pls):
+    """The rows of a fetch on a mesh, in the layout of this rank's local
+    hot store.  Where the slab's local shard holds the same chunk of every
+    expert as the hot store (every mesh axis of more than one rank splits
+    both alike: always on a (1, 1) mesh) the slab's local shard is the
+    pool, as on the plain path.  Otherwise (the experts or d_ff split over
+    "model") the plan's rows are exchanged first: each rank takes the
+    rows it holds (zero elsewhere), and a redistribution to the hot
+    store's layout sums the expert split and gathers the d_ff split; the
+    copy into the hot store then takes those rows as its pool.  Either way
+    the copy is ``gather_rows_into``, the row-copy kernel on the card."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    def sources(plan, slabs):
+        safe_e = plan.expert.clamp_min(0)
+        out = []
+        for w, hp in zip(slabs, hot_pls):
+            local = w.to_local()
+            if all(p == q for p, q, n in zip(w.placements, hp, mesh.shape)
+                   if n > 1):
+                out.append((local.reshape(local.shape[0], -1), safe_e))
+                continue
+            shape, offset = compute_local_shape_and_global_offset(
+                w.shape, mesh, w.placements)
+            lo, cnt = offset[0], shape[0]
+            rows = local[(safe_e - lo).clamp(0, max(cnt - 1, 0)).long()]
+            if cnt != w.shape[0]:
+                mine = (safe_e >= lo) & (safe_e < lo + cnt)
+                rows = torch.where(mine.view((-1,) + (1,) * (rows.ndim - 1)),
+                                   rows, torch.zeros_like(rows))
+            pl = [Partial() if isinstance(p, Shard) and p.dim == 0 else p
+                  for p in w.placements]
+            full = (safe_e.shape[0],) + tuple(w.shape[1:])
+            rows = DTensor.from_local(
+                rows, mesh, pl, shape=torch.Size(full),
+                stride=torch.empty(full, device="meta").stride())
+            rows = rows.redistribute(mesh, hp).to_local()
+            out.append((rows.reshape(rows.shape[0], -1),
+                        torch.arange(rows.shape[0], dtype=I32,
+                                     device=rows.device)))
+        return out
+    return sources
+
+
+def _moe_decode_mesh(cfg: ExpertPlaneConfig, mesh, s: ExpertPlaneState,
+                     router, x, slabs, mode):
+    """The step on a model mesh: the tokens (split over dp) and the router
+    gathered whole, so every rank plans the same fetch on its copy of the
+    bookkeeping; the fetch writes each rank's chunk of the rows
+    (``_mesh_sources``); the hot store is gathered over dp before the
+    products (as ``launch.mesh.gather_dp`` gathers an FSDP weight), and the
+    result is laid out as ``x`` (every rank computes the whole batch's
+    experts)."""
+    from torch.distributed.tensor import Replicate
+    rep = [Replicate()] * mesh.ndim
+    xr = x.redistribute(mesh, rep).to_local()
+    rr = router.redistribute(mesh, rep).to_local()
+    S = cfg.hot_slots
+    hot_pls = _hot_placements(mesh)
+
+    def hot():
+        return tuple(
+            DTensor.from_local(h[:S], mesh, pl).redistribute(
+                mesh, rep).to_local()
+            for h, pl in zip((s.hot_wi, s.hot_wg, s.hot_wo), hot_pls))
+    y = _moe(cfg, s, rr, xr, slabs, mode, _mesh_sources(mesh, hot_pls), hot)
+    y = DTensor.from_local(y, mesh, rep).redistribute(mesh, x.placements)
+    return y, s

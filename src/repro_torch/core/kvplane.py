@@ -50,6 +50,9 @@ Where the port departs from the JAX form, and why:
   on one device, or, given a far process group (``launch.mesh``), each
   rank's own shard with an all_gather of the partials, as JAX's
   ``shard_map`` body.
+* **On a model mesh** a plane is not laid out by its spec (its trash rows
+  and flat tables do not split evenly): each rank keeps a local plane
+  (``local_plane``, ``mesh_sparse_step``; see the section below).
 """
 from __future__ import annotations
 
@@ -715,41 +718,145 @@ def jitted_sharded_decode(cfg: KVPlaneConfig, mode: str | None = None,
     return partial(_mesh_sparse_decode, cfg, mode, group)
 
 
+def _owners(cfg: KVPlaneConfig, t, gpage, shard_ids) -> torch.Tensor:
+    """Which of ``shard_ids`` own the append page ``gpage`` at token ``t``:
+    its owner, unless an egress fault masks that shard's remote write."""
+    own = gpage // cfg.num_pages == shard_ids
+    fc = cfg.faults
+    if fc is not None and fc.egress_active:
+        own = own & ~fc.egress_fail(t, gpage.expand(shard_ids.shape),
+                                    shard_ids)
+    return own
+
+
+def _append_one(cfg: KVPlaneConfig, s: KVPlaneState, owner, k_new, v_new,
+                lengths) -> None:
+    """One shard's part of ``append_sharded``: the append when ``owner``."""
+    P, NP = cfg.page_tokens, cfg.num_pages
+    t = lengths[0]
+    slot = (t % P).reshape(1).long()
+    gp = (t // P % NP).reshape(1).long()                 # b = 0
+    kn = k_new[0].to(cfg.dtype)[:, None]                # [KVH, 1, Dh]
+    vn = v_new[0].to(cfg.dtype)[:, None]
+    s.k_slab[:, gp, slot] = torch.where(owner, kn, s.k_slab[:, gp, slot])
+    s.v_slab[:, gp, slot] = torch.where(owner, vn, s.v_slab[:, gp, slot])
+    kf = kn.to(torch.float32)
+    s.kmax[:, gp] = torch.where(owner, torch.maximum(s.kmax[:, gp], kf),
+                                s.kmax[:, gp])
+    s.kmin[:, gp] = torch.where(owner, torch.minimum(s.kmin[:, gp], kf),
+                                s.kmin[:, gp])
+    f = s.page_table[gp]
+    safe_f = f.clamp_min(0).long()
+    do_frame = owner & (f >= 0)
+    s.k_frames[:, safe_f, slot] = torch.where(
+        do_frame, kn, s.k_frames[:, safe_f, slot])
+    s.v_frames[:, safe_f, slot] = torch.where(
+        do_frame, vn, s.v_frames[:, safe_f, slot])
+    s.page_rows[gp] = torch.where(
+        do_frame, torch.maximum(s.page_rows[gp], (slot + 1).to(I32)),
+        s.page_rows[gp])
+
+
 def append_sharded(cfg: KVPlaneConfig, states: list, k_new, v_new, lengths):
     """Append one token's KV (B=1) into the owning shard's slab page, the
     frame copy if resident, and that page's summaries.  An egress fault
     on the owner's remote write masks the whole append: nothing mutates."""
-    D = len(states)
-    P, NP = cfg.page_tokens, cfg.num_pages
-    t = lengths[0]
-    gpage = t // P
-    slot = (t % P).reshape(1).long()
-    dev = lengths.device
-    shard_ids = torch.arange(D, dtype=I32, device=dev)
-    own = gpage // NP == shard_ids
-    fc = cfg.faults
-    if fc is not None and fc.egress_active:
-        own = own & ~fc.egress_fail(t, gpage.expand(D), shard_ids)
-    gp = (gpage % NP).reshape(1).long()                 # b = 0
-    kn = k_new[0].to(cfg.dtype)[:, None]                # [KVH, 1, Dh]
-    vn = v_new[0].to(cfg.dtype)[:, None]
+    shard_ids = torch.arange(len(states), dtype=I32, device=lengths.device)
+    own = _owners(cfg, lengths[0], lengths[0] // cfg.page_tokens, shard_ids)
     for d, s in enumerate(states):
-        owner = own[d]
-        s.k_slab[:, gp, slot] = torch.where(owner, kn, s.k_slab[:, gp, slot])
-        s.v_slab[:, gp, slot] = torch.where(owner, vn, s.v_slab[:, gp, slot])
-        kf = kn.to(torch.float32)
-        s.kmax[:, gp] = torch.where(owner, torch.maximum(s.kmax[:, gp], kf),
-                                    s.kmax[:, gp])
-        s.kmin[:, gp] = torch.where(owner, torch.minimum(s.kmin[:, gp], kf),
-                                    s.kmin[:, gp])
-        f = s.page_table[gp]
-        safe_f = f.clamp_min(0).long()
-        do_frame = owner & (f >= 0)
-        s.k_frames[:, safe_f, slot] = torch.where(
-            do_frame, kn, s.k_frames[:, safe_f, slot])
-        s.v_frames[:, safe_f, slot] = torch.where(
-            do_frame, vn, s.v_frames[:, safe_f, slot])
-        s.page_rows[gp] = torch.where(
-            do_frame, torch.maximum(s.page_rows[gp], (slot + 1).to(I32)),
-            s.page_rows[gp])
+        _append_one(cfg, s, own[d], k_new, v_new, lengths)
     return states
+
+
+# --------------------------------------------------------------------------
+# the planes on a model mesh (launch.mesh): one local plane a rank
+# --------------------------------------------------------------------------
+# A plane's state carries trash rows and flat [B*NP+1] tables, which do not
+# split evenly over dp, so a plane is not laid out by its spec.  Each rank
+# keeps a plane of its own: a batch-sharded dense or window plane is, on
+# the rank at coordinate r of dp's n ranks, the plane of sequences
+# [r*B/n, (r+1)*B/n), with its own trash rows and its own identity page
+# table (``local_plane``); a sharded sparse state is a list of shard
+# states of which each rank keeps its own shard and ``None`` for the
+# others (``launch.mesh.put_far``'s layout).  Every rank on one dp
+# coordinate holds the same plane (replicated over "model").
+
+def local_config(cfg: KVPlaneConfig, n: int) -> KVPlaneConfig:
+    """The config of one of ``n`` ranks' dense or window planes."""
+    if not cfg.dense:
+        raise ValueError("a sparse plane splits by shards, not by batch")
+    if cfg.batch % n:
+        raise ValueError(f"a batch of {cfg.batch} sequences does not split "
+                         f"evenly over {n} data-parallel ranks")
+    b = cfg.batch // n
+    return dataclasses.replace(cfg, batch=b, num_frames=b * cfg.num_pages)
+
+
+def local_plane(cfg: KVPlaneConfig, s: KVPlaneState, r: int, n: int
+                ) -> KVPlaneState:
+    """Rank ``r``'s plane of a dense or window plane split over ``n``
+    ranks: its sequences' pages and frames (page ``(b, j)`` is frame
+    ``b*NP + j``, so each rank's block of one is its block of the other),
+    the page table and frame owners renumbered from 0, and the trash rows
+    of ``s``.  A new state (shares no storage with ``s``)."""
+    lc = local_config(cfg, n)
+    lo, hi = r * lc.num_frames, (r + 1) * lc.num_frames
+    out = {}
+    for k in KVPlaneState._fields:
+        x = getattr(s, k)
+        if k in _FRAME_AXIS1:
+            out[k] = torch.cat([x[:, lo:hi], x[:, -1:]], 1)
+        elif k in _FRAME_AXIS0 + _PAGE_AXIS0:
+            body = x[lo:hi]
+            if k in ("page_table", "frame_page"):
+                body = torch.where(body >= 0, body - lo, body)
+            out[k] = torch.cat([body, x[-1:]])
+        else:
+            out[k] = x.clone()
+    return KVPlaneState(**out)
+
+
+def concat_planes(cfg: KVPlaneConfig, planes: list) -> KVPlaneState:
+    """The whole plane from the ranks' local planes in dp order (the
+    inverse of ``local_plane``; the trash rows are rank 0's)."""
+    lc = local_config(cfg, len(planes))
+    out = {}
+    for k in KVPlaneState._fields:
+        xs = [getattr(p, k) for p in planes]
+        if k in _FRAME_AXIS1:
+            out[k] = torch.cat([x[:, :-1] for x in xs] + [xs[0][:, -1:]], 1)
+        elif k in _FRAME_AXIS0 + _PAGE_AXIS0:
+            body = [x[:-1] for x in xs]
+            if k in ("page_table", "frame_page"):
+                body = [torch.where(x >= 0, x + r * lc.num_frames, x)
+                        for r, x in enumerate(body)]
+            out[k] = torch.cat(body + [xs[0][-1:]])
+        else:
+            out[k] = xs[0].clone()
+    return KVPlaneState(**out)
+
+
+def mesh_sparse_step(cfg: KVPlaneConfig, states: list, k_new, v_new, q,
+                     lengths, mesh, *, mode: str | None = None):
+    """``append_sharded`` then ``sharded_sparse_decode`` on a model mesh
+    (``shards`` = the dp ranks): this rank appends to its own shard,
+    ``states[d]`` at its dp coordinate ``d``, when it owns the page, and
+    attends over it; ``acc``/``m``/``l`` are all-gathered over dp in
+    shard order (``launch.mesh.all_gather``, three functional collectives
+    a call, as JAX's ``_sharded_decode_body`` has three ``all_gather``s)
+    and combined as the loop combines them.  q [1, H, Dh] whole on every
+    rank; returns out [1, H, Dh]."""
+    d, n = far.coordinate(mesh, "dp")
+    if n != len(states):
+        raise ValueError(f"{len(states)} shards on {n} data-parallel ranks")
+    s = states[d]
+    own = _owners(cfg, lengths[0], lengths[0] // cfg.page_tokens,
+                  torch.full((1,), d, dtype=I32, device=lengths.device))
+    _append_one(cfg, s, own[0], k_new, v_new, lengths)
+    P, NP = cfg.page_tokens, cfg.num_pages
+    now = lengths + 1
+    acc, m, l, _ = attend_sparse_partial(cfg, s, q, d * NP * P, now[0],
+                                         _newest_local(cfg, now, d),
+                                         mode=mode)
+    acc, m, l = (far.all_gather(x, mesh, "dp") for x in (acc, m, l))
+    return _combine(acc, m, l, q.dtype)

@@ -79,3 +79,12 @@ class PlaneConfig:
     def page_bytes(self) -> int:
         return self.page_objs * self.row_bytes
 
+
+def vaddr_of(vpage, slot, page_objs: int):
+    """The virtual address of ``slot`` on ``vpage``."""
+    return vpage * page_objs + slot
+
+
+def split_vaddr(vaddr, page_objs: int):
+    """(vpage, slot) of a virtual address."""
+    return vaddr // page_objs, vaddr % page_objs

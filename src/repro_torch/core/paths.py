@@ -196,6 +196,15 @@ def alloc_frame(cfg: PlaneConfig, s: st.PlaneState, do=None):
 # ingress path 1: paging (whole-page fetch; vaddrs stable)
 # --------------------------------------------------------------------------
 
+def page_in(cfg: PlaneConfig, s: st.PlaneState, v, do=None
+            ) -> st.PlaneState:
+    """Fetch vpage ``v`` (REMOTE -> LOCAL) through the paging path, into a
+    frame ``alloc_frame`` chooses (evicting its victim if none is free):
+    the paper's paging path as one operation."""
+    s, f = alloc_frame(cfg, s, do)
+    return page_in_at(cfg, s, v, f, do)
+
+
 def page_in_at(cfg: PlaneConfig, s: st.PlaneState, v, f, do=None
                ) -> st.PlaneState:
     """Fetch vpage ``v`` into the GIVEN (already vacated) frame ``f`` — the
@@ -287,3 +296,17 @@ def _append_obj(cfg: PlaneConfig, s: st.PlaneState, o, row, which: str,
     add(s.live_count, v_new, 1, do)
     s = _kill_old_copy(cfg, s, v_old, slot_old, do)
     return s, v_new, slot_new
+
+
+def object_in(cfg: PlaneConfig, s: st.PlaneState, o, do=None
+              ) -> st.PlaneState:
+    """Fetch object ``o`` through the runtime path: its row from the far
+    tier onto the ingress fill page (a new fill page when the current one
+    is full), the smart pointer rewritten, the old copy killed, its card
+    bit set: the runtime path as one operation."""
+    P, D = cfg.page_objs, cfg.obj_dim
+    row = take(s.slab.view(-1, D), take(s.obj_loc, o))
+    s, v_new, slot_new = _append_obj(cfg, s, o, row, "fill_vpage", do)
+    st.bump(s.stats, obj_ins=i32(do))
+    put(s.cat.view(-1), v_new * P + slot_new, True, do)
+    return s

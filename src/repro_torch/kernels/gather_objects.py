@@ -127,7 +127,8 @@ def check_into(dst: torch.Tensor, dst_idx: torch.Tensor, pool: torch.Tensor,
     if not (dst.is_contiguous() and dst_idx.is_contiguous()):
         raise ValueError("gather_rows_into: dst and dst_idx must be "
                          "contiguous")
-    if dst.device == pool.device and dst.nbytes and pool.nbytes:
+    if dst.device == pool.device and dst.nbytes and pool.nbytes \
+            and not dst.is_meta:       # a meta tensor has no storage
         a, b = dst.data_ptr(), pool.data_ptr()
         if a < b + pool.nbytes and b < a + dst.nbytes:
             raise ValueError("gather_rows_into: dst and pool overlap")

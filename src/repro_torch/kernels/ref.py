@@ -29,6 +29,46 @@ def gather_rows_into_ref(dst: torch.Tensor, dst_idx: torch.Tensor,
     return dst
 
 
+def _last_wins(idx: torch.Tensor) -> torch.Tensor:
+    """bool [N]: the last of the entries of ``idx`` that share a target
+    (JAX on the CPU applies duplicate scatter writes in order)."""
+    i = torch.arange(idx.shape[0], device=idx.device)
+    same = idx[None, :] == idx[:, None]
+    return torch.where(same, i[None, :], -1).amax(dim=1) == i
+
+
+def scatter_rows_ref(pool: torch.Tensor, idx: torch.Tensor,
+                     rows: torch.Tensor) -> torch.Tensor:
+    """``pool`` with ``rows[i]`` written to row ``idx[i]`` where ``idx[i] >=
+    0`` (those distinct); a new tensor.  As in JAX a negative entry writes
+    row 0's old value back to row 0, after any earlier write there."""
+    safe = idx.clamp_min(0).long()
+    val = torch.where((idx >= 0)[:, None], rows.to(pool.dtype), pool[safe])
+    out = pool.clone()
+    last = _last_wins(safe)
+    out[safe[last]] = val[last]
+    return out
+
+
+def compact_rows_ref(frames: torch.Tensor, src: torch.Tensor,
+                     dst_page: torch.Tensor, dst_rows=None) -> torch.Tensor:
+    """Destination pages assembled from scattered source rows; a new
+    tensor.  frames [F, P, D]; src [M, P] int32 flat row (frame*P + slot)
+    per destination slot, -1 keeps the slot; dst_page [M] int32
+    destination frame, -1 writes frame 0's old page back (after any earlier
+    write there), as in JAX; ``dst_rows`` unused (JAX's API symmetry)."""
+    F, P, D = frames.shape
+    gathered = frames.reshape(F * P, D)[src.clamp_min(0).long()]
+    tgt = dst_page.clamp_min(0).long()
+    keep = frames[tgt]
+    page = torch.where((src >= 0)[..., None], gathered, keep)
+    page = torch.where((dst_page >= 0)[:, None, None], page, keep)
+    out = frames.clone()
+    last = _last_wins(tgt)
+    out[tgt[last]] = page[last]
+    return out
+
+
 def compact_pages_ref(pool: torch.Tensor, plan: torch.Tensor,
                       page_objs: int) -> torch.Tensor:
     """pool [N, D], plan [M*P] flat row ids (-1 = zero slot) -> [M, P, D]."""

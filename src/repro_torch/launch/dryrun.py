@@ -5,26 +5,38 @@ argument bytes, memory, FLOPs and collectives.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b \\
       --shape train_4k --mesh single --layers 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b \\
+      --shape decode_32k --device cuda
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both \\
       --out results/dryrun_torch.json
 
 Where JAX compiles a cell for 256 or 512 fake devices, this process joins
 a fake process group of 256 ranks (16 x 16) or 512 (2 x 16 x 16) as rank
 0 (``torch.distributed``'s ``fake`` backend: collectives move nothing),
-lays parameters, optimizer state and batch out as DTensors from their
-logical specs (``launch.mesh``) on a ``DeviceMesh`` of ``--device``, and
-runs the step once.  Per cell this records:
+lays the step's arguments out on a ``DeviceMesh`` of ``--device``
+(``lay_out``: parameters, optimizer state and batch as DTensors from
+their logical specs, ``launch.mesh``; a decode cell's serve state by
+``api.serve_state_on_mesh``, each rank's own planes) and runs the step
+once.  Per cell this records:
 
   * ``arg_bytes_per_device``: JAX's arithmetic over the arguments' meta
-    tensors (each dimension divided evenly by its mesh axes);
+    tensors (each dimension divided evenly by its mesh axes; a serve
+    state's planes in their logical views);
   * ``memory``: ``MemTracker``'s peak for rank 0 by category (the
-    parameters ``Parameter``; optimizer state, step and batch ``Other``;
-    the step's tensors ``Activation``/``Temp``).  DTensor splits unevenly
-    as ``torch.chunk`` does, so where an axis does not divide a dimension
-    rank 0 holds the larger chunk and this exceeds the even split;
+    parameters ``Parameter``; optimizer state, step, batch and serve state
+    ``Other``; the step's tensors ``Activation``/``Temp``).  DTensor splits
+    unevenly as ``torch.chunk`` does, so where an axis does not divide a
+    dimension rank 0 holds the larger chunk and this exceeds the even
+    split;
   * ``cost_analysis.flops``: rank 0's FLOPs (``analysis.comm``);
   * ``collectives``: rank 0's collectives (``analysis.comm``);
   * ``analytic``: ``analysis.analytic.cell_model`` at the same depth.
+
+Where the record departs from JAX's: under ``--layers`` ``analytic`` is
+the model at the cut depth (JAX's is at full depth); ``memory`` holds
+MemTracker's categories (JAX has XLA's ``memory_analysis`` keys);
+``trace_s`` stands in for ``lower_s``/``compile_s``; ``cost_analysis``
+carries only ``flops``.
 
 The local shards are meta tensors (shape and dtype, no storage), so the
 step's own temporaries are meta too and a full-width cell needs no
@@ -32,11 +44,12 @@ memory.  Fake tensors would not do: under an active ``FakeTensorMode``
 DTensor takes the run for compile tracing and drops its sharding cache
 (the smoke llama3-8b step took 34.5 s against 11.1 s on the CPU, torch
 2.13), and fake tensors outside an active mode leave the tensors the step
-creates itself real, on the card.  Decode cells record the argument bytes
-of the serve state (``models.api.serve_state_pspecs``) and the analytic
-model; tracing the planes' decode over a mesh is not ported yet and such
-a cell's trace fails with ``NotImplementedError`` (recorded, as any
-failure is).
+creates itself real, on the card.  A decode cell runs every kernel's
+plain version (``kernel_impl="ref"``), which is what JAX's dry-run lowers
+(its ``"auto"`` is the jnp reference off a TPU); the attention repeats on
+the "model" ranks of a dp coordinate and the expert plane's products on
+every rank, as ``models.api`` and ``core.expertplane`` say, so their
+traced FLOPs exceed the analytic model's even split.
 """
 from __future__ import annotations
 
@@ -154,13 +167,19 @@ def cell_config(arch: str, shape_name: str, layers_override=None):
     return cfg, cfgs.SHAPES[shape_name]
 
 
+def _shards(shape, mesh) -> int:
+    """The KV plane's shard count of a decode cell: the dp ranks for
+    decode_long, else 1."""
+    ms = _mesh_shape(mesh)
+    return ms.get("pod", 1) * ms.get("data", 1) \
+        if shape.kind == "decode_long" else 1
+
+
 def build_cell(cfg, shape, mesh):
     """(fn, args, specs) of one cell: the step and its arguments as meta
     tensors with their logical spec trees; kimi trains with Adafactor, the
     others with AdamW.  ``mesh`` (a DeviceMesh or an {axis: size} dict)
     gives the shard count of decode_long."""
-    ms = _mesh_shape(mesh)
-    dp = ms.get("pod", 1) * ms.get("data", 1)
     bs = api.batch_specs(cfg, shape)
     batch = {k: v[0] for k, v in bs.items()}
     batch_spec = {k: v[1] for k, v in bs.items()}
@@ -180,11 +199,11 @@ def build_cell(cfg, shape, mesh):
         return (api.make_prefill_step(cfg), (params, batch),
                 (pspec, batch_spec))
 
-    shards = dp if shape.kind == "decode_long" else 1
+    shards = _shards(shape, mesh)
     state = _logical(api.init_decode_state(cfg, shape, shards=shards,
                                            device="meta"),
                      cfg, shape, shards)
-    return (api.decode_step(cfg, shape, shards=shards),
+    return (api.decode_step(cfg, shape, shards=shards, kernel_impl="ref"),
             (params, state, batch["tokens"]),
             (pspec, api.serve_state_pspecs(cfg, shape, shards),
              batch_spec["tokens"]))
@@ -220,26 +239,56 @@ def fake_world(world_size: int):
         dist.destroy_process_group()
 
 
-def trace(fn, args, specs, mesh, kind: str) -> dict:
-    """Run the step once on DTensors laid out on ``mesh`` from the specs
-    (local shards on the meta device) under ``MemTracker`` and a
-    ``comm.TraceCounter``; returns the record's memory, FLOPs and
-    collectives."""
+def _tensors(tree) -> list:
+    """Every tensor of a tree of dicts, lists, tuples and plane states
+    (``None`` holds none)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    elif hasattr(tree, "_fields"):
+        tree = [getattr(tree, k) for k in tree._fields]
+    elif not isinstance(tree, (list, tuple)):
+        return []
+    return [t for x in tree for t in _tensors(x)]
+
+
+def lay_out(args, specs, mesh, kind: str, cfg=None, shape=None) -> list:
+    """The step's arguments on ``mesh``: DTensors from their logical specs;
+    a decode cell's serve state (``args[1]``, in its logical views) made
+    anew as meta tensors and laid out as ``api.serve_state_on_mesh`` lays
+    out a real one (``cfg`` and ``shape`` name the cell)."""
+    if kind in ("train", "prefill"):
+        return [mesh_lib.distribute_tree(a, mesh, s)
+                for a, s in zip(args, specs)]
+    if cfg is None or shape is None:
+        raise ValueError(f"laying out a {kind} cell needs its cfg and shape")
+    shards = _shards(shape, mesh)
+    state = api.serve_state_on_mesh(
+        cfg, shape, api.init_decode_state(cfg, shape, shards=shards,
+                                          device="meta"), mesh, shards)
+    return [mesh_lib.distribute_tree(args[0], mesh, specs[0]), state,
+            mesh_lib.distribute(args[2], mesh, specs[2])]
+
+
+def trace(fn, args, specs, mesh, kind: str, *, cfg=None, shape=None
+          ) -> dict:
+    """Run the step once on its arguments laid out on ``mesh``
+    (``lay_out``: local shards on the meta device) under ``MemTracker``
+    and a ``comm.TraceCounter``; returns the record's memory, FLOPs and
+    collectives.  The parameters are tracked as ``Parameter``, the other
+    arguments (optimizer state, step, batch, serve state) as external
+    ``Other``."""
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.distributed.tensor.experimental import implicit_replication
-    if kind not in ("train", "prefill"):
-        raise NotImplementedError(
-            f"dry-run trace of a {kind} cell: the serve state over a mesh "
-            "(the planes' decode on DTensors) is ROADMAP Queue 1 item 6")
     t0 = time.time()
-    dargs = [mesh_lib.distribute_tree(a, mesh, s)
-             for a, s in zip(args, specs)]
+    dargs = lay_out(args, specs, mesh, kind, cfg, shape)
     holder = torch.nn.Module()
     for i, p in enumerate(leaves(dargs[0])):
         holder.register_parameter(f"p{i}", torch.nn.Parameter(
             p, requires_grad=False))
     mt = MemTracker()
-    mt.track_external(holder, *[t for a in dargs[1:] for t in leaves(a)])
+    mt.track_external(holder, *[t for a in dargs[1:] for t in _tensors(a)])
     counter = comm.TraceCounter()
     with mesh_lib.use_mesh(mesh), implicit_replication(), mt, counter:
         fn(*dargs)
@@ -271,7 +320,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
             rec["arg_bytes_per_device"] = cell_arg_bytes(args, specs, mesh)
             rec["analytic"] = analytic.cell_model(
                 arch, shape_name, mesh_kind, layers_override or 0)
-            rec.update(trace(fn, args, specs, mesh, shape.kind))
+            rec.update(trace(fn, args, specs, mesh, shape.kind, cfg=cfg,
+                             shape=shape))
         except Exception as e:  # noqa: BLE001 — record it, keep sweeping
             rec["status"] = "fail"
             rec["error"] = f"{type(e).__name__}: {e}"

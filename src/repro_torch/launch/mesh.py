@@ -408,6 +408,55 @@ def axis_size(mesh, logical) -> int:
     return n
 
 
+def axis_mesh(mesh, logical="dp"):
+    """The mesh axes a logical axis splits over as one 1-D ``DeviceMesh``
+    (several axes flattened in major-to-minor order, ``("pod", "data")`` on
+    the multi-pod mesh), or ``None`` when it names no axis.  Its local
+    rank is this rank's coordinate on the logical axis, the index of its
+    chunk of a dimension split over it."""
+    axes = _axis(mesh, logical)
+    if not axes:
+        return None
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    sub = mesh[axes[0]] if len(axes) == 1 else mesh[axes]
+    return sub if len(axes) == 1 else sub._flatten()
+
+
+def coordinate(mesh, logical="dp") -> tuple[int, int]:
+    """(this rank's coordinate, the number of ranks) on a logical axis."""
+    sub = axis_mesh(mesh, logical)
+    return (0, 1) if sub is None else (sub.get_local_rank(), sub.size())
+
+
+def all_gather(x: torch.Tensor, mesh, logical="dp") -> torch.Tensor:
+    """``[n, *x.shape]``: every rank's ``x`` on a logical axis of ``mesh``
+    in its coordinate order (``lax.all_gather``), through the functional
+    collective, which the dry-run's ``analysis.comm.TraceCounter`` counts.
+    A bool crosses as uint8."""
+    sub = axis_mesh(mesh, logical)
+    if sub is None:
+        return x[None]
+    c10d = torch.ops._c10d_functional
+    y = c10d.wait_tensor(c10d.all_gather_into_tensor(
+        _wire(x)[None], sub.size(), sub.get_group().group_name))
+    return y.to(torch.bool) if x.dtype == torch.bool else y
+
+
+def dividing_axes(mesh, logical, n: int):
+    """A spec entry for a dimension of ``n`` split over a logical axis:
+    the logical axis when its ranks divide ``n``, else its minor-most mesh
+    axes whose ranks do (``"data"`` of ``("pod", "data")``), else ``None``
+    (whole on every rank)."""
+    shape = dict(zip(_names(mesh), mesh.shape))
+    axes = _axis(mesh, logical) or ()
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if n % math.prod(shape[a] for a in axes) == 0:
+        return logical
+    while axes and n % math.prod(shape[a] for a in axes):
+        axes = axes[1:]
+    return (axes[0] if len(axes) == 1 else axes) if axes else None
+
+
 def split_heads(x, heads: int):
     """x [..., heads * dh] -> [..., heads, dh].  On a current mesh whose
     axis splits x's last dimension into a count of parts that does not

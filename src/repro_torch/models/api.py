@@ -12,6 +12,8 @@ families for the launchers, the trainer and the serving engine.
   * ``make_prefill_step(cfg)``          — (params, batch) -> last-token
                                           logits
   * ``init_decode_state(cfg, shape)``   — concrete serve state
+  * ``serve_state_on_mesh`` / ``serve_state_whole`` — a serve state laid
+                                          out on a model mesh, and back
   * ``decode_step(cfg, shape)``         — (params, state, tokens) ->
                                           (state, logits)
 
@@ -41,6 +43,15 @@ Where the port departs from the JAX form, and why:
   ``lengths`` and new recurrent and conv state tensors (JAX's are new
   arrays too; writing them back in place would cost one more pass over
   xLSTM's matrix memory each step).
+* **Decode on a model mesh.**  Under ``launch.mesh.use_mesh`` with
+  DTensor parameters, ``decode_step`` takes a state laid out by
+  ``serve_state_on_mesh``: the planes are each rank's local planes, not
+  DTensors (their trash rows and flat tables do not split evenly), and
+  each plane call runs on them through ``launch.mesh.local`` (JAX's
+  ``shard_map``) with q's heads gathered over "model": the attention
+  repeats on each "model" rank of a dp coordinate, as with JAX's frames,
+  whose KV heads are replicated over "model".  ``serve_state_whole``
+  reads such a state back whole.
 * **The embedding is indexed** (``lm.embed_tokens``).  JAX multiplies a
   one-hot matrix into the embedding; each output has a single nonzero
   term, so a lookup gives the same bits without reading the whole table
@@ -55,6 +66,7 @@ import functools
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs import ArchConfig, ShapeConfig
 from ..core import expertplane, kvplane
@@ -334,35 +346,72 @@ def _embed_tokens(cfg, params, tokens):
 def _logits(cfg, params, x):
     x = rms_norm(x, params["final_ln"])
     if cfg.tie_embeddings:
-        return torch.matmul(x, params["embed"].t()).to(torch.float32)[:, 0]
+        return torch.matmul(x, mesh_lib.gather_dp(params["embed"]).t()).to(
+            torch.float32)[:, 0]
     return dense(x, params["lm_head"]).to(torch.float32)[:, 0]
 
 
 def _attn_qkv(gp, x, lengths, cfg):
     """Project one decode token; returns q [B,H,Dh], k/v [B,KVH,Dh]
     (RoPE applied at absolute positions)."""
-    B = x.shape[0]
-    H, KVH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = dense(x, gp["wq"]).reshape(B, 1, H, Dh)
-    k = dense(x, gp["wk"]).reshape(B, 1, KVH, Dh)
-    v = dense(x, gp["wv"]).reshape(B, 1, KVH, Dh)
+    H, KVH = cfg.n_heads, cfg.n_kv_heads
+    q = mesh_lib.split_heads(dense(x, gp["wq"]), H)
+    k = mesh_lib.split_heads(dense(x, gp["wk"]), KVH)
+    v = mesh_lib.split_heads(dense(x, gp["wv"]), KVH)
     q = rope(q, lengths[:, None], cfg.rope_theta)
     k = rope(k, lengths[:, None], cfg.rope_theta)
     return q[:, 0], k[:, 0], v[:, 0]
 
 
-def _plane_attend(cfg, kvc, gp, x2d, kv, lengths, mode):
-    """One attention application through the KV plane.  x2d: [B, 1, d]."""
-    q, k, v = _attn_qkv(gp, x2d, lengths, cfg)
+def _plane(kvc, mode, kv, q, k, v, lengths):
+    """Append the token's k/v [B, KVH, Dh] to the plane ``kv`` and attend
+    with q [B, H, Dh]; returns [B, H, Dh]."""
     if mode == "dense":
         kvplane.append_dense(kvc, kv, k, v, lengths)
-        out, kv = kvplane.attend_dense(kvc, kv, q, lengths + 1)
+        out, _ = kvplane.attend_dense(kvc, kv, q, lengths + 1)
     elif mode == "window":
         kvplane.append_window(kvc, kv, k, v, lengths)
-        out, kv = kvplane.attend_window(kvc, kv, q, lengths + 1)
+        out, _ = kvplane.attend_window(kvc, kv, q, lengths + 1)
     else:  # sparse (sharded)
         kvplane.append_sharded(kvc, kv, k, v, lengths)
-        out, kv = kvplane.sharded_sparse_decode(kvc, kv, q, lengths + 1)
+        out, _ = kvplane.sharded_sparse_decode(kvc, kv, q, lengths + 1)
+    return out
+
+
+def _mesh_plane(kvc, mode, mesh, kv, q, k, v, lengths):
+    """``_plane`` on a model mesh, on this rank's local plane
+    (``serve_state_on_mesh``) through ``launch.mesh.local``: q, k and v
+    come in with their heads gathered over "model" (JAX keeps the frames'
+    KV heads replicated over "model", so GSPMD attends with whole heads
+    too), split over dp by batch where the plane is; the output is laid
+    out so.  The attention repeats on each "model" rank of a dp
+    coordinate.  A sparse plane's shards are the dp ranks
+    (``kvplane.mesh_sparse_step``)."""
+    if mode == "sparse":
+        def fn(q, k, v, lengths):
+            return kvplane.mesh_sparse_step(kvc, kv, k, v, q, lengths, mesh)
+        b = None
+    else:
+        b = DP if kvc.batch > 1 else None
+        lkvc = kvplane.local_config(
+            kvc, mesh_lib.coordinate(mesh, DP)[1]) if b else kvc
+
+        def fn(q, k, v, lengths):
+            return _plane(lkvc, mode, kv, q, k, v, lengths)
+    spec = (b, None, None)
+    return mesh_lib.local(fn, (spec, spec, spec, (b,)), spec)(q, k, v,
+                                                              lengths)
+
+
+def _plane_attend(cfg, kvc, gp, x2d, kv, lengths, mode):
+    """One attention application through the KV plane.  x2d: [B, 1, d].
+    On a current mesh with DTensor activations, through ``_mesh_plane``."""
+    q, k, v = _attn_qkv(gp, x2d, lengths, cfg)
+    mesh = mesh_lib.current_mesh()
+    if mesh is not None and isinstance(q, DTensor):
+        out = _mesh_plane(kvc, mode, mesh, kv, q, k, v, lengths)
+    else:
+        out = _plane(kvc, mode, kv, q, k, v, lengths)
     B = x2d.shape[0]
     out = dense(out.reshape(B, 1, cfg.n_heads * cfg.hd), gp["wo"])
     return out, kv
@@ -438,10 +487,11 @@ def decode_step(cfg: ArchConfig, shape: ShapeConfig, shards: int = 1, *,
                 x = x + o
                 # cross attention against the (static) encoder memory
                 h = rms_norm(x, gp["lnx"])
-                q = dense(h, gp["cross_attn"]["wq"]).reshape(
-                    B, 1, cfg.n_heads, cfg.hd)
-                o = attn_lib.full_attention(q, cross["k"][i], cross["v"][i],
-                                            causal=False)
+                q = mesh_lib.split_heads(dense(h, gp["cross_attn"]["wq"]),
+                                         cfg.n_heads)
+                o = attn_lib.per_shard(
+                    functools.partial(attn_lib.full_attention, causal=False),
+                    q, cross["k"][i], cross["v"][i])
                 o = dense(o.reshape(B, 1, cfg.n_heads * cfg.hd),
                           gp["cross_attn"]["wo"])
                 x = x + o
@@ -556,6 +606,83 @@ def serve_state_pspecs(cfg: ArchConfig, shape: ShapeConfig, shards: int = 1):
 
     extra = [_expert_state_pspecs()] * L if _uses_expert_plane(cfg) else ()
     return ServeState(lengths, [kv] * L, extra)
+
+
+def _walk(x, spec, leaf, plane):
+    """``x`` rebuilt with ``plane(x, spec)`` for each plane state (a KV
+    plane, a list of sparse shard states under a ``PerShard`` spec, an
+    expert plane) and ``leaf(x, spec)`` for every other tensor."""
+    if isinstance(spec, PerShard) or isinstance(
+            x, (kvplane.KVPlaneState, expertplane.ExpertPlaneState)):
+        return plane(x, spec)
+    if isinstance(x, dict):
+        return {k: _walk(v, spec[k], leaf, plane) for k, v in x.items()}
+    if isinstance(x, ServeState):
+        return ServeState(*(_walk(v, sp, leaf, plane)
+                            for v, sp in zip(x, spec)))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_walk(v, sp, leaf, plane) for v, sp in zip(x, spec))
+    return leaf(x, spec)
+
+
+def serve_state_on_mesh(cfg: ArchConfig, shape: ShapeConfig,
+                        state: ServeState, mesh, shards: int = 1
+                        ) -> ServeState:
+    """A whole serve state (the same on every rank; meta tensors too) laid
+    out on ``mesh`` for ``decode_step`` under ``launch.mesh.use_mesh``.
+    The tensors outside the planes (``lengths``, the recurrent and conv
+    states, the encoder memory) become DTensors by their specs
+    (``serve_state_pspecs``).  The planes become this rank's local planes,
+    since their trash rows and flat tables do not split evenly: a
+    batch-split dense or window plane is the plane of this rank's
+    sequences (``kvplane.local_plane``; at batch 1 the whole plane, on
+    every rank, as JAX's spec replicates it); a sparse layer's shard
+    states (``shards`` = the dp ranks) keep this rank's own shard and
+    ``None`` for the others; an expert plane keeps this rank's chunk of
+    the hot store (``expertplane.local_plane``).  Dense planes are new
+    tensors; the rest may share storage with ``state``, which the step
+    then updates in place as the plain step does."""
+    kvc, _ = kv_plan(cfg, shape, shards)
+    r, n = mesh_lib.coordinate(mesh, DP)
+
+    def plane(x, spec):
+        if isinstance(spec, PerShard):
+            if len(x) != n:
+                raise ValueError(f"{len(x)} shard states on {n} "
+                                 "data-parallel ranks")
+            return [p if i == r else None for i, p in enumerate(x)]
+        if isinstance(x, expertplane.ExpertPlaneState):
+            return expertplane.local_plane(x, r, n)
+        return kvplane.local_plane(kvc, x, r, n) if kvc.batch > 1 else x
+    return _walk(state, serve_state_pspecs(cfg, shape, shards),
+                 lambda x, spec: mesh_lib.distribute(x, mesh, spec), plane)
+
+
+def serve_state_whole(cfg: ArchConfig, shape: ShapeConfig,
+                      state: ServeState, mesh, shards: int = 1
+                      ) -> ServeState:
+    """The inverse of ``serve_state_on_mesh``: the whole serve state on
+    every rank (each DTensor whole, the local planes all-gathered over dp
+    and joined) -- how a host reads a mesh state."""
+    kvc, _ = kv_plan(cfg, shape, shards)
+
+    def gathered(p):
+        """Every dp rank's ``p`` (a plane state), in dp order."""
+        g = {k: mesh_lib.all_gather(getattr(p, k), mesh, DP)
+             for k in p._fields}
+        return [type(p)(**{k: g[k][i] for k in p._fields})
+                for i in range(g[p._fields[0]].shape[0])]
+
+    def plane(x, spec):
+        if isinstance(spec, PerShard):
+            return gathered(next(p for p in x if p is not None))
+        if isinstance(x, expertplane.ExpertPlaneState):
+            return expertplane.concat_planes(gathered(x))
+        return (kvplane.concat_planes(kvc, gathered(x)) if kvc.batch > 1
+                else x)
+    return _walk(state, serve_state_pspecs(cfg, shape, shards),
+                 lambda x, spec: x.full_tensor() if isinstance(x, DTensor)
+                 else x, plane)
 
 
 # --------------------------------------------------------------------------

@@ -21,8 +21,10 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..core.batch import stable_order
+from ..launch import mesh as mesh_lib
 from ..launch.mesh import gather_dp
 from .common import BATCH, DP, TP, ParamDef, dense, shard
 
@@ -92,8 +94,16 @@ def moe(params, x, *, n_experts: int, topk: int, capacity_factor: float = 1.25,
     Cg = -(-Cg // 4) * 4
     dev = x.device
 
+    # the groups split over the batch axes, or over as many of their minor
+    # axes as divide the group count (16 groups on 2 x 16 batch ranks: over
+    # "data"; one long-context sequence is one group, whole on every rank)
+    mesh = mesh_lib.current_mesh()
+    gb = BATCH if mesh is None else mesh_lib.dividing_axes(mesh, BATCH, G)
+    x_in = x
+    if gb != BATCH:
+        x = shard(x, (gb, None, None))
     xg = x.reshape(G, Tg, d)
-    xg = shard(xg, (BATCH, None, None))
+    xg = shard(xg, (gb, None, None))
     probs, gate, expert = route(xg, params["router"], K)        # [G, Tg, *]
 
     # aux loss (Switch-style load balancing, global)
@@ -129,7 +139,7 @@ def moe(params, x, *, n_experts: int, topk: int, capacity_factor: float = 1.25,
     gdst = (dst + rows * torch.arange(G, device=dev)[:, None]).reshape(-1)
     buf = buf.index_put((gdst,), xg[:, src_tok].reshape(G * n, d))
     xe = buf.view(G, rows, d)[:, :-1].reshape(G, E, Cg, d)
-    xe = shard(xe, (BATCH, None, None, None))
+    xe = shard(xe, (gb, None, None, None))
 
     # expert computation (batched SwiGLU), one product per expert over all
     # groups' slots
@@ -140,7 +150,7 @@ def moe(params, x, *, n_experts: int, topk: int, capacity_factor: float = 1.25,
          * i_.to(torch.float32)).to(x.dtype)
     ye = torch.bmm(h, gather_dp(params["wo"])).reshape(E, G, Cg, d
                                                       ).transpose(0, 1)
-    ye = shard(ye, (BATCH, None, None, None))   # reverse exchange to dp
+    ye = shard(ye, (gb, None, None, None))   # reverse exchange to dp
 
     # combine
     flat_y = torch.cat([ye.reshape(G, E * Cg, d),
@@ -150,4 +160,8 @@ def moe(params, x, *, n_experts: int, topk: int, capacity_factor: float = 1.25,
                       ).reshape(G, Tg, K, d)
     w = torch.where(keep.reshape(G, Tg, K), gate, 0.0).to(torch.float32)
     out = torch.einsum("gtkd,gtk->gtd", yt.to(torch.float32), w)
-    return out.reshape(B, S, d).to(x.dtype), aux
+    out = out.reshape(B, S, d).to(x.dtype)
+    if x is not x_in and isinstance(x_in, DTensor):
+        # back to x's layout, so the gradient comes back in the groups' one
+        out = out.redistribute(x_in.device_mesh, x_in.placements)
+    return out, aux

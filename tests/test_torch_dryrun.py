@@ -11,9 +11,12 @@
 * a smoke train cell traced on a fake 8-rank (4, 2) mesh: FLOPs, gradient
   sync collectives, per-rank FLOPs x 8 against the unsharded step's, and
   ``MemTracker``'s parameter bytes against the argument bytes;
-* every arch's smoke train and prefill cells trace on that mesh;
-* a decode cell records its argument bytes, the analytic model and its
-  trace's ``NotImplementedError``; ``--device cuda`` with no card raises.
+* every arch's smoke train, prefill, decode and (outside LONG_SKIP)
+  decode_long cells trace on that mesh, the long cells with the sparse
+  combine's all-gathers over dp, llama3-8b's decode cell at a rank's share
+  of the plain step's FLOPs;
+* a full-width decode cell traces ``ok`` with its argument bytes and the
+  analytic model; ``--device cuda`` with no card raises.
 """
 import dataclasses
 import json
@@ -31,6 +34,7 @@ from repro_torch import configs as tcfgs
 from repro_torch.analysis import analytic, comm
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as tmesh
+from repro_torch.models import api
 
 ROOT = Path(__file__).resolve().parents[1]
 MESHES = {"single": {"data": 16, "model": 16},
@@ -137,16 +141,115 @@ def test_every_smoke_train_and_prefill_cell_traces(arch):
             assert rec["memory"]["Total"] > 0, (arch, kind)
 
 
+@pytest.mark.parametrize("arch", tcfgs.ARCHS)
+def test_every_smoke_decode_cell_traces(arch, monkeypatch):
+    """Each arch's smoke decode cell, and its decode_long cell unless the
+    arch is in LONG_SKIP, traced on a fake 8-rank (4, 2) mesh: FLOPs and
+    memory; a sparse long cell's combine all-gathers acc, m and l over dp
+    (4 ranks) once each per plane call; llama3-8b's dense cell computes a
+    rank's share of the batch (rank 0's FLOPs between the plain step's / 8
+    and / 4, within 5%)."""
+    cfg = _smoke(arch)
+    calls = []
+    real = tmesh.all_gather
+
+    def spy(x, mesh, logical="dp"):
+        calls.append((tuple(x.shape), x.dtype, logical))
+        return real(x, mesh, logical)
+    monkeypatch.setattr(tmesh, "all_gather", spy)
+    kinds = ["decode"] + ([] if arch in tcfgs.LONG_SKIP else ["decode_long"])
+    with dryrun.fake_world(8):
+        mesh = tmesh.make_host_mesh(4, 2, device_type="cpu")
+        for kind in kinds:
+            shape = tcfgs.ShapeConfig("smoke", 64 if kind == "decode"
+                                      else 1024, 8 if kind == "decode"
+                                      else 1, kind)
+            calls.clear()
+            fn, args, specs = dryrun.build_cell(cfg, shape, mesh)
+            rec = dryrun.trace(fn, args, specs, mesh, kind, cfg=cfg,
+                               shape=shape)
+            flops = rec["cost_analysis"]["flops"]
+            assert flops > 0, (arch, kind)
+            assert rec["memory"]["Total"] > 0, (arch, kind)
+            _, mode = api.kv_plan(cfg, shape, 4)
+            if mode != "sparse":
+                assert calls == [], (arch, kind)
+                continue
+            H, Dh = cfg.n_heads, cfg.hd
+            n_calls = (6 if cfg.family == "hybrid" else cfg.n_layers)
+            assert calls == [((1, H, Dh), torch.float32, "dp"),
+                             ((1, H, 1), torch.float32, "dp"),
+                             ((1, H, 1), torch.float32, "dp")] * n_calls
+            sizes = {4 * H * Dh * 4, 4 * H * 4}
+            seen = [r for r in comm_records(fn, args, specs, mesh, kind,
+                                            cfg, shape)
+                    if r["kind"] == "all-gather" and r["group"] == 4
+                    and r["out_bytes"] in sizes]
+            assert len(seen) == 3 * n_calls, (arch, len(seen))
+            assert rec["collectives"]["all-gather"]["count"] >= len(seen)
+        if arch == "llama3-8b":
+            shape = tcfgs.ShapeConfig("smoke", 64, 8, "decode")
+            fn, args, specs = dryrun.build_cell(cfg, shape, mesh)
+            rank = dryrun.trace(fn, args, specs, mesh, "decode", cfg=cfg,
+                                shape=shape)["cost_analysis"]["flops"]
+            plain = comm.TraceCounter()
+            with plain:
+                fn(args[0], api.init_decode_state(cfg, shape,
+                                                  device="meta"), args[2])
+            assert plain.records == []
+            assert plain.flops / 8 * 0.95 <= rank <= plain.flops / 4 * 1.05, \
+                (rank, plain.flops)
+
+
+def comm_records(fn, args, specs, mesh, kind, cfg, shape) -> list:
+    """The collectives a traced step issues, each as ``TraceCounter``
+    records it."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    dargs = dryrun.lay_out(args, specs, mesh, kind, cfg, shape)
+    counter = comm.TraceCounter()
+    with tmesh.use_mesh(mesh), implicit_replication(), counter:
+        fn(*dargs)
+    return counter.records
+
+
+def test_moe_groups_split_over_the_batch_axes_that_divide_them():
+    """mixtral's dropping MoE on a fake (pod 2, data 16, model 1) mesh with
+    32 sequences: its 16 token groups (``gcd(32, 16)``) do not split over
+    the 32 batch ranks, so they split over "data" alone
+    (``mesh.dividing_axes``) and the train and decode cells trace, as the
+    2 x 16 x 16 cells at 256 and 128 sequences do."""
+    from torch.distributed.device_mesh import init_device_mesh
+    cfg = dataclasses.replace(_smoke("mixtral-8x7b"), n_layers=1)
+    with dryrun.fake_world(32):
+        mesh = init_device_mesh("cpu", (2, 16, 1),
+                                mesh_dim_names=("pod", "data", "model"))
+        assert tmesh.dividing_axes(mesh, "batch", 32) == "batch"
+        assert tmesh.dividing_axes(mesh, "batch", 16) == "data"
+        assert tmesh.dividing_axes(mesh, "batch", 1) is None
+        for kind in ("train", "decode"):
+            shape = tcfgs.ShapeConfig("smoke", 16, 32, kind)
+            fn, args, specs = dryrun.build_cell(cfg, shape, mesh)
+            rec = dryrun.trace(fn, args, specs, mesh, kind, cfg=cfg,
+                               shape=shape)
+            assert rec["cost_analysis"]["flops"] > 0, kind
+
+
 def test_decode_cell_records_its_bytes_and_the_missing_trace():
+    """A decode cell at full width, 2 layers, on the 16 x 16 mesh records
+    its argument bytes (which JAX's arithmetic fixes, see
+    test_arg_bytes_match_jax_for_every_cell) and the analytic model, and
+    the trace that used to be missing: ``ok``, with FLOPs, collectives and
+    the serve state in MemTracker's ``Other``."""
     rec = dryrun.run_cell("llama3-8b", "decode_32k", "single",
                           layers_override=2, device="cpu")
-    assert rec["status"] == "fail"
-    assert rec["error"].startswith("NotImplementedError"), rec["error"]
-    assert "Queue 1 item 6" in rec["error"]
+    assert rec["status"] == "ok", rec.get("traceback")
     assert rec["mesh_shape"] == MESHES["single"]
     assert rec["arg_bytes_per_device"]["total"]["device"] > 0
     assert rec["analytic"] == analytic.cell_model("llama3-8b", "decode_32k",
                                                   "single", 2)
+    assert rec["cost_analysis"]["flops"] > 0
+    assert rec["memory"]["Other"] > 0          # the serve state, external
+    assert rec["collectives"]["total_wire_bytes_corrected"] > 0
 
 
 def test_dryrun_wants_a_card_for_cuda():
