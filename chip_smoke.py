@@ -80,7 +80,11 @@ Phases (any failure exits non-zero, with no result line):
               against their plain versions at llama3-8b's widths, with
               times, bounds and the library call where there is one; every
               bf16 paged_attention call on the tensor cores, and a repeat
-              call the same bits
+              call the same bits; cat_update bit for bit at the hybrid
+              plane's CAT and in 8 cases around it (touches past the end,
+              none, 65,536, views off 16 bytes, 2 words a page, every
+              page touched, pages of 3,000 and 8,192 words), one launch a
+              call, timed cold (copies of the words cycled) and warm
 10. kvoracle  at a small size: the KV plane's batched fetch executor
               against its reference executor, bit for bit (attend_sparse
               with each lookahead mode; sharded_sparse_decode, 2 shards)
@@ -242,8 +246,15 @@ SHARDS, SHARD_TICKS, SHARD_SERIAL_TICKS = 4, 256, 32
 SHARD_SPILL_TICKS, SHARD_SPILL_BUDGET, SHARD_PLANE_TICKS = 32, 64, 64
 SHARD_ROBUST_TICKS, SHARD_OUTAGE = 96, 2
 MESH_TICKS, MESH_KV_STEPS, MESH_TIMEOUT_S = 32, 8, 600
-# cat_update at the hybrid plane's CAT: 3,145,728 pages of 8 cards
+# cat_update at the hybrid plane's CAT: 3,145,728 pages of 8 cards, 1,024
+# touches; the cases beside it: touches up to 3 pages past the end, none,
+# 65,536, views off 16 bytes, 40 cards a page (2 words) over half the
+# pages, 65,536 touches on 1,024 pages (every page touched), and pages of
+# 3,000 and 8,192 words (chunks of 2 pages and of 1, the widest page the
+# kernel takes); 4 copies of the words, cycled, time it cold in L2
 CAT_PAGES, CAT_CARDS, CAT_TOUCHES = 3_145_728, 8, 1024
+CAT_WIDE_CARDS, CAT_MANY, CAT_SMALL_PAGES, CAT_COLD = 40, 65_536, 1024, 4
+CAT_HUGE_CARDS = (3000 * 32, 8192 * 32)
 # the model decode path ([lm], [lmexpert]): 8 sequences in a 4,096-token
 # dense KV plane with 2,048 seeded tokens of context, 32 timed greedy
 # steps, 8 more each checked against the plain path, a 4-step profile and
@@ -1984,36 +1995,139 @@ def phase_kv_kernels(torch, ops, ref, card: str, rate: float) -> list:
     del kf, vf
     torch.cuda.empty_cache()
 
-    # ---- cat_update: the hybrid plane's CAT, V=3,145,728, P=8, R=1024 ------
-    V, Pc, R = CAT_PAGES, CAT_CARDS, CAT_TOUCHES
-    bits = torch.randint(0, 2 ** Pc, (V, 1), generator=g, device=dev,
-                         dtype=torch.int32)
-    sets = []
-    for _ in range(8):
-        va = torch.randint(-1, V * Pc, (R,), generator=g, device=dev,
-                           dtype=torch.int32)
-        va[: R // 4] = va[R // 4: R // 2]            # duplicate touches
-        sets.append(va)
-    b_k, c_k = ops.cat_update(bits, sets[0], page_objs=Pc)
-    b_p, c_p = ref.cat_update_ref(bits, sets[0], Pc)
-    check(torch.equal(b_k, b_p) and torch.equal(c_k.view(torch.int32),
-                                                c_p.view(torch.int32)),
-          "cat_update: kernel disagrees with its plain version")
-    pv = cyc(sets)
-    ms = device_ms(torch, lambda: ops.cat_update(bits, pv(), page_objs=Pc))
-    plain_ms = device_ms(torch, lambda: ref.cat_update_ref(bits, pv(), Pc),
-                         n=10)
-    bnd = bound(8 * V + 4 * V + 4 * R, 2 * R + 6 * V, rate, PEAK_F32)
-    log(f"[kernel] cat_update V={V} P={Pc} R={R}: equal to plain, bits and "
-        f"CAR bit for bit; {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, "
-        f"library none, bound {bnd[0] * 1e3:.2f} us by {bnd[1]}) [{card}]")
-    out.append(kv_record("cat_update",
-                         "src/repro_torch/kernels/csrc/cat_update.cu",
-                         "src/repro/kernels/cat_update.py:55", ms, plain_ms,
-                         None, 0.0, bnd))
-    del bits, sets
+    # ---- cat_update: the hybrid plane's CAT and the edges of its input --
+    out.append(phase_cat_update(torch, ops, ref, g, card, rate))
     torch.cuda.synchronize()
     return out
+
+
+def cat_words(torch, g, V: int, Pc: int):
+    """A CAT of V pages of Pc cards on the card: every bit a page can hold
+    drawn, so a full word's top bit makes it negative as int32."""
+    W = -(-Pc // 32)
+    top = 2 ** 32 if Pc >= 32 * W else 2 ** (Pc - 32 * (W - 1))
+    b = torch.randint(0, 2 ** 32, (V, W), generator=g, device="cuda",
+                      dtype=torch.int64)
+    b[:, -1] %= top
+    return torch.where(b > 2 ** 31 - 1, b - 2 ** 32, b).to(torch.int32)
+
+
+def cat_touch_sets(torch, g, V: int, Pc: int, R: int, past: int = 0,
+                   n: int = 8) -> list:
+    """``n`` lists of R vaddrs from -1 to ``past`` pages past the last, a
+    quarter of them duplicates; with ``past``, four of them -1, V * Pc,
+    2^31 - 1 and the last card."""
+    out = []
+    for _ in range(n):
+        va = torch.randint(-1, (V + past) * Pc, (R,), generator=g,
+                           device="cuda", dtype=torch.int32)
+        va[: R // 4] = va[R // 4: R // 2]            # duplicate touches
+        if past and R >= 8:
+            va[R // 2: R // 2 + 4] = torch.tensor(
+                [-1, V * Pc, 2 ** 31 - 1, V * Pc - 1], device="cuda",
+                dtype=torch.int32)
+        out.append(va)
+    return out
+
+
+def cat_update_case(torch, ops, ref, pool, sets, Pc, tag, card,
+                    rate) -> dict:
+    """One cat_update case: each touch set through the kernel on
+    ``pool[0]``, bit for bit against the plain version and one launch a
+    call; then the kernel's time cycling the sets on ``pool[0]`` (warm:
+    the words stay in L2 between calls) and, given more copies of the
+    words in ``pool``, cycling those too, so that every call finds its
+    words in device memory (cold: the time the case reports, as the bound
+    counts the words from device memory); the plain version's time and
+    the bound."""
+    bits = pool[0]
+    V, W = bits.shape
+    R = sets[0].shape[0]
+    for va in sets:
+        before = ops.launch_counts()["cat_update"]
+        b_k, c_k = ops.cat_update(bits, va, page_objs=Pc)
+        n = ops.launch_counts()["cat_update"] - before
+        check(n == 1, f"cat_update {tag}: {n} launches for one call")
+        b_p, c_p = ref.cat_update_ref(bits, va, Pc)
+        check(torch.equal(b_k, b_p) and torch.equal(
+            c_k.view(torch.int32), c_p.view(torch.int32)),
+            f"cat_update {tag}: kernel disagrees with its plain version")
+    del b_k, c_k, b_p, c_p
+    pv = cycler(sets)
+    warm_ms = device_ms(torch, lambda: ops.cat_update(bits, pv(),
+                                                      page_objs=Pc))
+    ms = warm_ms
+    if len(pool) > 1:
+        pb = cycler(pool)
+        ms = device_ms(torch, lambda: ops.cat_update(pb(), pv(),
+                                                     page_objs=Pc))
+    plain_ms = device_ms(torch, lambda: ref.cat_update_ref(bits, pv(), Pc),
+                         n=10, rounds=3)
+    bnd = bound(8 * V * W + 4 * V + 4 * R, 2 * R + 6 * V * W, rate, PEAK_F32)
+    how = (f"cold ({len(pool)} copies of the words cycled) "
+           if len(pool) > 1 else "")
+    log(f"[kernel] cat_update {tag} V={V} P={Pc} W={W} R={R}: equal to "
+        f"plain, bits and CAR bit for bit, one launch a call, on "
+        f"{len(sets)} touch sets; {how}{ms * 1e3:.2f} us "
+        f"({100 * bnd[0] / ms:.1f}% of the bound), warm (one copy) "
+        f"{warm_ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, library "
+        f"none, bound {bnd[0] * 1e3:.2f} us by {bnd[1]}) [{card}]")
+    return dict(case=tag, pages=V, page_objs=Pc, words=W, touches=R, ms=ms,
+                warm_ms=warm_ms, cold=len(pool) > 1, plain_ms=plain_ms,
+                bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=0.0,
+                launches_per_call=1)
+
+
+def phase_cat_update(torch, ops, ref, g, card: str, rate: float) -> dict:
+    """cat_update at the hybrid plane's CAT (V=3,145,728, P=8, R=1,024:
+    the JSON record's time, cold) and the cases around it, each bit for
+    bit against ref.cat_update_ref: touches past the last page beside -1
+    and 2^31 - 1, no touches, 65,536 touches, views whose words and
+    touches lie off 16 bytes (the plain loads, a ragged last chunk), 2
+    words a page, every page of 1,024 touched, and pages so wide that a
+    chunk holds 2 of them (no bulk copy) or 1."""
+    i32 = torch.int32
+    V, Pc, R = CAT_PAGES, CAT_CARDS, CAT_TOUCHES
+
+    def sets(V_, Pc_, R_, past=3):
+        return cat_touch_sets(torch, g, V_, Pc_, R_, past=past)
+
+    pool = [cat_words(torch, g, V, Pc) for _ in range(CAT_COLD)]
+    main = cat_update_case(torch, ops, ref, pool, sets(V, Pc, R, past=0), Pc,
+                           "hybrid CAT", card, rate)
+    cases = [main]
+    for tag, touches in (
+            ("past the end", sets(V, Pc, R)),
+            ("no touches", [torch.empty((0,), device="cuda", dtype=i32)]),
+            ("many touches", sets(V, Pc, CAT_MANY)),
+            ("off 16 bytes", [va[1:] for va in sets(V - 1, Pc, R + 1)])):
+        words = [b[1:] for b in pool] if tag == "off 16 bytes" else pool
+        cases.append(cat_update_case(torch, ops, ref, words, touches, Pc,
+                                     tag, card, rate))
+    del pool
+    Vw = V // 2                     # 2 words a page: the W=1 CAT's words
+    wide = [cat_words(torch, g, Vw, CAT_WIDE_CARDS) for _ in range(CAT_COLD)]
+    cases.append(cat_update_case(
+        torch, ops, ref, wide, sets(Vw, CAT_WIDE_CARDS, R), CAT_WIDE_CARDS,
+        "2 words a page", card, rate))
+    del wide
+    small = [cat_words(torch, g, CAT_SMALL_PAGES, Pc)]
+    many = sets(CAT_SMALL_PAGES, Pc, CAT_MANY)
+    check(all(int(torch.unique(va[(va >= 0) & (va < CAT_SMALL_PAGES * Pc)]
+                               // Pc).numel()) == CAT_SMALL_PAGES
+              for va in many), "cat_update: a page left untouched")
+    cases.append(cat_update_case(torch, ops, ref, small, many, Pc,
+                                 "every page touched", card, rate))
+    for Ph, Vh in zip(CAT_HUGE_CARDS, (7, 3)):
+        cases.append(cat_update_case(
+            torch, ops, ref, [cat_words(torch, g, Vh, Ph)], sets(Vh, Ph, R),
+            Ph, f"{Ph // 32} words a page", card, rate))
+    rec = kv_record("cat_update", "src/repro_torch/kernels/csrc/cat_update.cu",
+                    "src/repro/kernels/cat_update.py:55", main["ms"],
+                    main["plain_ms"], None, 0.0,
+                    (main["bound_ms"], main["bound_by"]))
+    rec.update(warm_ms=main["warm_ms"], cases=cases)
+    return rec
 
 
 def _kv_states_equal(convert, cfg, a, b) -> bool:

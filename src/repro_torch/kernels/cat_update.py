@@ -4,8 +4,8 @@ CUDA kernel ``csrc/cat_update.cu`` (the port of the Pallas kernel
 
 ``cat_bits [V, W] int32 (the uint32 words of the JAX version), vaddrs [R]
 int32 (-1 = skip) -> (bits [V, W] int32, car [V] f32)``: the touched card
-bits ORed in, duplicates included, and popcount/page_objs per page.
-CUDA tensors only.
+bits ORed in, duplicates included, and popcount/page_objs per page, in
+one launch.  CUDA tensors only.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 from . import _build
 
 launches = 0    # kernel launches since the last ops.reset_launch_counts()
+MAX_WORDS = 8192    # a page's words must fit one block's 32 KB chunk
 
 
 def cat_update(cat_bits: torch.Tensor, vaddrs: torch.Tensor, *,
@@ -31,6 +32,9 @@ def cat_update(cat_bits: torch.Tensor, vaddrs: torch.Tensor, *,
     if page_objs < 1 or W != -(-page_objs // 32):
         raise ValueError(f"cat_update: {W} words per page for "
                          f"page_objs={page_objs}")
+    if W > MAX_WORDS:
+        raise ValueError(f"cat_update: at most {MAX_WORDS * 32} objects a "
+                         f"page, got page_objs={page_objs}")
     bits = torch.empty_like(cat_bits)
     car = torch.empty((V,), dtype=torch.float32, device=cat_bits.device)
     if V == 0:

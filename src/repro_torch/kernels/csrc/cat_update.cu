@@ -11,44 +11,189 @@
 // version) and vaddrs [R] int32 (negative = skip; past the last page =
 // dropped, as the JAX scatter drops it).
 //
-// Bound: bytes.  The words are read once and written once and the CAR is
-// written once, 8*V*W + 4*V + 4*R bytes: 37.7 MB for the hybrid plane's
-// CAT (V = 3,145,728, P = 8, W = 1) with R = 1024, 11.3 us at 3.35 TB/s.
-// Design: three steps on the stream, each O(V) or O(R), none O(V*R): a
-// device copy of the words, one thread per touch setting its bit with
-// atomicOr (duplicate touches OR together in any order), and one thread
-// per page counting its words' bits (__popc) into the CAR with an IEEE
-// division, as the plain version divides.  The copy and the count read
-// the words twice, 12.6 MB more than the bound counts.
+// Bound: bytes.  The words are read once and written once, the CAR is
+// written once and the touches read once: 8*V*W + 4*V + 4*R bytes, 37.7 MB
+// for the hybrid plane's CAT (V = 3,145,728, P = 8, W = 1) with R = 1024,
+// 11.3 us at 3.35 TB/s.
+//
+// Design: one launch that moves those bytes and no more.  Each block of
+// 512 threads owns a chunk of whole pages whose words fill 32 KB of shared
+// memory (8,192 pages at W = 1, 4,096 at W = 2; a multiple of 4 pages, so
+// every chunk starts on 16 bytes), beside a 32 KB delta of the same words.
+//  1. One thread stages the chunk's words with one bulk copy (TMA,
+//     cp.async.bulk, completing on an mbarrier); words a bulk copy cannot
+//     take (a ragged last chunk, an input not on 16 bytes) are loaded by
+//     plain loads.  The other threads clear the delta.
+//  2. Meanwhile the block's threads stride over the touch list, four
+//     16-byte loads in flight a thread: the same 4*R bytes for every
+//     block, so L2 serves them after the first block (grid * 4*R bytes of
+//     L2 reads: 1.6 MB at R = 1024 over 384 blocks).  A touch is the
+//     block's when its vaddr lies in the chunk's range (one subtraction and
+//     one unsigned compare, no division); its bit goes into the delta with
+//     a shared-memory atomicOr: duplicates OR together, no global atomics.
+//  3. Once the copy has landed, the block writes words | delta back with
+//     16-byte stores, then one CAR a page (__popc of its words, an IEEE
+//     division as the plain version divides).
+//
+// Long touch lists: every block reads the whole list from L2, grid * 4*R
+// bytes (100 MB at R = 65,536 over 384 blocks), so the time grows with
+// grid * R.  At R = 65,536 the kernel is within 3% of the three-step design
+// it replaced (a copy of the words, a scatter of global atomics, a count
+// kernel: tools/cat_update_variants.py times both), and it falls clearly
+// behind only at R = 262,144, far past any touch list the planes make, so
+// there is one path.
+//
+// Pages wider than a chunk (page_objs > 32 * 8,192) are refused: the
+// Pallas kernel takes them, the port does not.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+constexpr int kChunkWords = 8192;   // 32 KB of words a block
+constexpr int kLoads = 4;           // 16-byte touch loads in flight a thread
+constexpr int kSmemBytes = 2 * kChunkWords * 4;   // the words and their delta
 
-__global__ void __launch_bounds__(kThreads)
-cat_scatter_kernel(const int32_t* __restrict__ vaddrs, int64_t n_touch,
-                   uint32_t* __restrict__ bits, int64_t n_pages, int words,
-                   int page_objs) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_touch) return;
-  const int32_t va = vaddrs[i];
-  if (va < 0) return;
-  const int64_t v = va / page_objs;
-  if (v >= n_pages) return;
-  const int slot = va % page_objs;
-  atomicOr(bits + v * words + slot / 32, 1u << (slot % 32));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// the barrier's one arrival, expecting `bytes` of copies to complete
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+// `bytes` (a multiple of 16) from global to shared memory, completing on
+// `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
+// One block a chunk of `chunk_pages` pages.  `vec`: bits_in and bits_out
+// lie on 16 bytes and chunk_pages is a multiple of 4, so the chunk is
+// staged by a bulk copy and written by 16-byte stores.
+// `vec_touch`: vaddrs lie on 16 bytes (read 4 at a time).
 __global__ void __launch_bounds__(kThreads)
-cat_count_kernel(const uint32_t* __restrict__ bits, float* __restrict__ car,
-                 int64_t n_pages, int words, float page_objs) {
-  const int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= n_pages) return;
-  int cnt = 0;
-  for (int w = 0; w < words; ++w) cnt += __popc(bits[v * words + w]);
-  car[v] = __fdiv_rn((float)cnt, page_objs);
+cat_update_kernel(const uint32_t* __restrict__ bits_in,
+                  const int32_t* __restrict__ vaddrs, int64_t n_touch,
+                  uint32_t* __restrict__ bits_out, float* __restrict__ car,
+                  int64_t n_pages, int words, int page_objs, int chunk_pages,
+                  bool vec, bool vec_touch) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* words_s = smem;                  // the chunk's words
+  uint32_t* delta_s = smem + kChunkWords;    // the bits the touches set
+  __shared__ alignas(8) uint64_t bar_s;
+  const int tid = threadIdx.x;
+  const int64_t p0 = (int64_t)blockIdx.x * chunk_pages;
+  const int np = (int)min((int64_t)chunk_pages, n_pages - p0);
+  const int nw = np * words;
+  const int nw4 = vec ? nw / 4 : 0;          // 16-byte groups of words
+  const int64_t w0 = p0 * words;
+  const uint32_t bar = smem_u32(&bar_s);
+
+  // 1. stage: the bulk copy first, then the words it leaves to plain
+  // loads; the delta cleared meanwhile
+  if (tid == 0) {
+    mbar_init(bar);
+    mbar_expect(bar, (uint32_t)nw4 * 16);
+    if (nw4 > 0)
+      bulk_load(smem_u32(words_s), bits_in + w0, (uint32_t)nw4 * 16, bar);
+  }
+  for (int i = 4 * nw4 + tid; i < nw; i += kThreads)
+    words_s[i] = bits_in[w0 + i];
+  uint4* d4 = reinterpret_cast<uint4*>(delta_s);
+  for (int i = tid; i < (nw + 3) / 4; i += kThreads)
+    d4[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+
+  // 2. the chunk's touches: vaddrs in [lo, lo + span), cut at 2^31 (no
+  // int32 vaddr lies beyond; span is 0 for a chunk wholly past it).  A
+  // negative vaddr is >= 2^31 as unsigned, so its offset is >= span.
+  const int64_t lo64 = p0 * page_objs;
+  const int64_t hi64 = min((p0 + np) * page_objs, (int64_t)INT32_MAX + 1);
+  const uint32_t lo = (uint32_t)min(lo64, hi64);
+  const uint32_t span = (uint32_t)max(hi64 - lo64, (int64_t)0);
+  auto take = [&](int32_t va) {
+    const uint32_t off = (uint32_t)va - lo;
+    if (off < span) {
+      const uint32_t page = off / (uint32_t)page_objs;
+      const uint32_t slot = off - page * (uint32_t)page_objs;
+      atomicOr(&delta_s[page * words + (slot >> 5)], 1u << (slot & 31));
+    }
+  };
+  // kLoads independent loads in flight a thread before any is tested
+  int64_t done = 0;
+  if (vec_touch) {
+    const int4* v4 = reinterpret_cast<const int4*>(vaddrs);
+    const int64_t n4 = n_touch / 4;
+    for (int64_t i0 = tid; i0 < n4; i0 += (int64_t)kThreads * kLoads) {
+      int4 t[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int64_t i = i0 + (int64_t)u * kThreads;
+        t[u] = i < n4 ? __ldg(v4 + i) : make_int4(-1, -1, -1, -1);
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        take(t[u].x);
+        take(t[u].y);
+        take(t[u].z);
+        take(t[u].w);
+      }
+    }
+    done = n4 * 4;
+  }
+  for (int64_t i = done + tid; i < n_touch; i += kThreads)
+    take(__ldg(vaddrs + i));
+  mbar_wait(bar, 0);
+  __syncthreads();
+
+  // 3. words | delta, back to shared memory and out; then the CAR
+  uint32_t* out = bits_out + w0;
+  uint4* s4 = reinterpret_cast<uint4*>(words_s);
+  for (int i = tid; i < nw4; i += kThreads) {
+    uint4 w = s4[i];
+    const uint4 d = d4[i];
+    w.x |= d.x;
+    w.y |= d.y;
+    w.z |= d.z;
+    w.w |= d.w;
+    s4[i] = w;
+    reinterpret_cast<uint4*>(out)[i] = w;
+  }
+  for (int i = 4 * nw4 + tid; i < nw; i += kThreads) {
+    words_s[i] |= delta_s[i];
+    out[i] = words_s[i];
+  }
+  __syncthreads();
+  const float fp = (float)page_objs;
+  for (int p = tid; p < np; p += kThreads) {
+    int cnt = 0;
+    for (int w = 0; w < words; ++w) cnt += __popc(words_s[p * words + w]);
+    car[p0 + p] = __fdiv_rn((float)cnt, fp);
+  }
+}
+
+bool on16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
@@ -59,20 +204,21 @@ extern "C" int repro_cat_update(int device, const void* bits_in,
                                 int page_objs, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (page_objs < 1 || words < 1) return (int)cudaErrorInvalidValue;
+  if (page_objs < 1 || words < 1 || words > kChunkWords)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = cudaMemcpyAsync(bits_out, bits_in, (size_t)(n_pages * words) * 4,
-                      cudaMemcpyDeviceToDevice, s);
+  e = cudaFuncSetAttribute(cat_update_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmemBytes);
   if (e != cudaSuccess) return (int)e;
-  uint32_t* b = static_cast<uint32_t*>(bits_out);
-  if (n_touch > 0) {
-    cat_scatter_kernel<<<(unsigned)((n_touch + kThreads - 1) / kThreads),
-                         kThreads, 0, s>>>(static_cast<const int32_t*>(vaddrs),
-                                           n_touch, b, n_pages, words,
-                                           page_objs);
-  }
-  cat_count_kernel<<<(unsigned)((n_pages + kThreads - 1) / kThreads),
-                     kThreads, 0, s>>>(
-      b, static_cast<float*>(car), n_pages, words, (float)page_objs);
+  int chunk_pages = kChunkWords / words;
+  if (chunk_pages >= 4) chunk_pages &= ~3;
+  const bool vec = on16(bits_in) && on16(bits_out) && chunk_pages % 4 == 0;
+  const int64_t grid = (n_pages + chunk_pages - 1) / chunk_pages;
+  cat_update_kernel<<<(unsigned)grid, kThreads, kSmemBytes, s>>>(
+      static_cast<const uint32_t*>(bits_in),
+      static_cast<const int32_t*>(vaddrs), n_touch,
+      static_cast<uint32_t*>(bits_out), static_cast<float*>(car), n_pages,
+      words, page_objs, chunk_pages, vec, on16(vaddrs));
   return (int)cudaGetLastError();
 }

@@ -429,18 +429,35 @@ def test_paged_attention_matches_pallas(b, kvh, g, dh, f, p, npg, dtype):
     np.testing.assert_array_equal(used.numpy(), np.asarray(uref))
 
 
-@pytest.mark.parametrize("v,p,r", [(16, 8, 24), (8, 64, 40), (5, 33, 12),
-                                   (4096, 8, 1024)])
-def test_cat_update_matches_pallas(v, p, r):
-    """Bits and CAR equal ``repro.kernels.ref`` and the Pallas body in
-    interpret mode, with duplicate touches, skipped (-1) ones and words
-    whose top bit is set (negative as int32)."""
+CAT_CASES = [(16, 8, 24, 0), (8, 64, 40, 0), (5, 33, 12, 0),
+             (4096, 8, 1024, 0), (16, 8, 24, 3), (5, 33, 12, 3),
+             (4, 8, 200, 3)]
+
+
+def _cat_inputs(v, p, r, past):
+    """Words with every bit a page can hold drawn (the top bit of a full
+    word set makes it negative as int32), and r vaddrs from -1 to ``past``
+    pages beyond the last, a quarter of them duplicates."""
     w = -(-p // 32)
     bits = RNG.randint(0, 2 ** 32, size=(v, w), dtype=np.uint64)
     bits &= np.uint64(2 ** p - 1 if p < 32 else 2 ** 32 - 1)
     bits = bits.astype(np.uint32)
-    vaddrs = RNG.randint(-1, v * p, size=r).astype(np.int32)
+    vaddrs = RNG.randint(-1, (v + past) * p, size=r).astype(np.int32)
     vaddrs[: r // 4] = vaddrs[r // 4: r // 2]        # duplicates
+    return bits, vaddrs
+
+
+@pytest.mark.parametrize(
+    "v,p,r,past", CAT_CASES,
+    ids=[f"{v}-{p}-{r}" + (f"-past{k}" if k else "")
+         for v, p, r, k in CAT_CASES])
+def test_cat_update_matches_pallas(v, p, r, past):
+    """Bits and CAR equal ``repro.kernels.ref`` and the Pallas body in
+    interpret mode, with duplicate touches, skipped (-1) ones, touches up
+    to ``past`` pages beyond the last (dropped), and words whose top bit is
+    set (negative as int32).  At (4, 8, 200) the touches outnumber the
+    pages' cards and every page is touched."""
+    bits, vaddrs = _cat_inputs(v, p, r, past)
     got_bits, got_car = ops.cat_update(torch.from_numpy(bits.view(np.int32)),
                                        torch.from_numpy(vaddrs), page_objs=p)
     assert got_bits.dtype == torch.int32
@@ -452,6 +469,26 @@ def test_cat_update_matches_pallas(v, p, r):
         np.testing.assert_array_equal(got_bits.numpy().view(np.uint32),
                                       np.asarray(want_b))
         np.testing.assert_array_equal(got_car.numpy(), np.asarray(want_c))
+    if past:
+        assert (vaddrs >= v * p).any()
+    if r > 8 * v * p:
+        touched = np.unique(vaddrs[(vaddrs >= 0) & (vaddrs < v * p)] // p)
+        assert touched.size == v
+
+
+@pytest.mark.parametrize("p", [8, 40])
+def test_cat_update_without_touches(p):
+    """R = 0 returns the words unchanged with their CAR, held against a
+    numpy popcount (JAX's ``cat_update_ref`` indexes the empty touch list
+    and raises IndexError)."""
+    bits, _ = _cat_inputs(12, p, 0, 0)
+    got_bits, got_car = ops.cat_update(
+        torch.from_numpy(bits.view(np.int32)),
+        torch.empty((0,), dtype=torch.int32), page_objs=p)
+    np.testing.assert_array_equal(got_bits.numpy().view(np.uint32), bits)
+    want = (np.bitwise_count(bits).sum(axis=1).astype(np.float32)
+            / np.float32(p))
+    np.testing.assert_array_equal(got_car.numpy(), want)
 
 
 def test_lengths_to_page_lens_matches_jax():
