@@ -81,10 +81,14 @@ Phases (any failure exits non-zero, with no result line):
               times, bounds and the library call where there is one; every
               bf16 paged_attention call on the tensor cores, and a repeat
               call the same bits; cat_update bit for bit at the hybrid
-              plane's CAT and in 8 cases around it (touches past the end,
+              plane's CAT and in 11 cases around it (touches past the end,
               none, 65,536, views off 16 bytes, 2 words a page, every
-              page touched, pages of 3,000 and 8,192 words), one launch a
-              call, timed cold (copies of the words cycled) and warm
+              page touched, pages of 3,000 and 8,192 words; pages split
+              over blocks: one of 65,536 words, 4 of 8,193 touched in
+              every block, one of 8,200 with -1 and past-the-end
+              touches), one launch a call (two for split pages: the
+              counters' fill), timed cold (copies of the words cycled)
+              and warm
 10. kvoracle  at a small size: the KV plane's batched fetch executor
               against its reference executor, bit for bit (attend_sparse
               with each lookahead mode; sharded_sparse_decode, 2 shards)
@@ -173,13 +177,16 @@ Every paged_attention launch of 11 to 18 is on the tensor cores.
               ("data", "model") mesh of an NCCL group of one rank and the
               serve state laid out by api.serve_state_on_mesh; dense
               decode (as 13: 8 sequences, 2,048 seeded tokens of context)
-              and long_500k through the sparse plane at shards = dp = 1,
-              8 greedy steps each on the mesh and on the plain path from
+              and long_500k through the sparse plane at shards = dp = 1;
+              kimi-k2 at full width, 1 of 61 layers, through the expert
+              plane (as 14, the 33.8 GB slab shared by both paths); 8
+              greedy steps each on the mesh and on the plain path from
               the same state: logits within 1e-5 of the largest, every
-              int and bool plane field bit for bit after
+              int and bool KV and expert plane field bit for bit after
               api.serve_state_whole, kernel launches equal (8
-              paged_attention a dense step; 8 page_scores and 16
-              gather_rows a long step); ms a step both ways
+              paged_attention a dense llama3-8b step; 8 page_scores and
+              16 gather_rows a long step; 1 paged_attention and 3
+              gather_rows a kimi-k2 step); ms a step both ways
 26. dryrun    launch.dryrun.run_cell on fake cuda meshes at full width, 2
               layers: llama3-8b train_4k on 16 x 16 (256 fake ranks) and
               2 x 16 x 16 (512), prefill_32k, decode_32k and long_500k on
@@ -187,7 +194,9 @@ Every paged_attention launch of 11 to 18 is on the tensor cores.
               device (llama3-8b's against the arithmetic), FLOPs a device
               beside the analytic model's, collectives by kind,
               MemTracker's peak, the trace's seconds; gradient sync in the
-              train cells, the sparse combine's all-gathers in long_500k
+              train cells, the sparse combine's all-gathers in long_500k;
+              in kimi-k2's no all-gather of the hot store and two
+              all-reduces a layer of its products' partial sums over dp
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA GPU and the repository's
@@ -249,12 +258,16 @@ MESH_TICKS, MESH_KV_STEPS, MESH_TIMEOUT_S = 32, 8, 600
 # cat_update at the hybrid plane's CAT: 3,145,728 pages of 8 cards, 1,024
 # touches; the cases beside it: touches up to 3 pages past the end, none,
 # 65,536, views off 16 bytes, 40 cards a page (2 words) over half the
-# pages, 65,536 touches on 1,024 pages (every page touched), and pages of
-# 3,000 and 8,192 words (chunks of 2 pages and of 1, the widest page the
-# kernel takes); 4 copies of the words, cycled, time it cold in L2
+# pages, 65,536 touches on 1,024 pages (every page touched), pages of
+# 3,000 and 8,192 words (chunks of 2 pages and of 1, the widest page one
+# block takes), and pages split over blocks (pages, cards): one of 65,536
+# words (8 blocks), 4 of 8,193 (2 blocks each, the second one word wide),
+# and one of 8,200 words with 3 cards short of its last word; 4 copies of
+# the words, cycled, time it cold in L2
 CAT_PAGES, CAT_CARDS, CAT_TOUCHES = 3_145_728, 8, 1024
 CAT_WIDE_CARDS, CAT_MANY, CAT_SMALL_PAGES, CAT_COLD = 40, 65_536, 1024, 4
 CAT_HUGE_CARDS = (3000 * 32, 8192 * 32)
+CAT_SPLIT = ((1, 65_536 * 32), (4, 8193 * 32), (1, 8200 * 32 - 3))
 # the model decode path ([lm], [lmexpert]): 8 sequences in a 4,096-token
 # dense KV plane with 2,048 seeded tokens of context, 32 timed greedy
 # steps, 8 more each checked against the plain path, a 4-step profile and
@@ -2030,24 +2043,48 @@ def cat_touch_sets(torch, g, V: int, Pc: int, R: int, past: int = 0,
     return out
 
 
+def split_touches(torch, sets, V: int, Pc: int) -> list:
+    """``sets`` with, in each, a touch on the first and the last card of
+    every block's slice of every page (kernels/cat_update.CHUNK_WORDS
+    words), each twice: pages split over blocks, touched in every block,
+    with duplicates."""
+    from repro_torch.kernels.cat_update import CHUNK_WORDS
+    cards = CHUNK_WORDS * 32
+    ends = []
+    for v in range(V):
+        for lo in range(0, Pc, cards):
+            ends += [v * Pc + lo, v * Pc + min(lo + cards, Pc) - 1]
+    ends = torch.tensor(ends * 2, device="cuda", dtype=torch.int32)
+    check(all(va.shape[0] >= 4 + ends.shape[0] for va in sets),
+          "cat_update: too few touches for the block ends")
+    for va in sets:
+        va[-ends.shape[0]:] = ends
+    return sets
+
+
 def cat_update_case(torch, ops, ref, pool, sets, Pc, tag, card,
                     rate) -> dict:
     """One cat_update case: each touch set through the kernel on
     ``pool[0]``, bit for bit against the plain version and one launch a
-    call; then the kernel's time cycling the sets on ``pool[0]`` (warm:
+    call (a page wider than a block's chunk: two, the fill of its
+    counters and the kernel); then the kernel's time cycling the sets on
+    ``pool[0]`` (warm:
     the words stay in L2 between calls) and, given more copies of the
     words in ``pool``, cycling those too, so that every call finds its
     words in device memory (cold: the time the case reports, as the bound
     counts the words from device memory); the plain version's time and
     the bound."""
+    from repro_torch.kernels.cat_update import CHUNK_WORDS
     bits = pool[0]
     V, W = bits.shape
     R = sets[0].shape[0]
+    calls = 2 if W > CHUNK_WORDS else 1
     for va in sets:
         before = ops.launch_counts()["cat_update"]
         b_k, c_k = ops.cat_update(bits, va, page_objs=Pc)
         n = ops.launch_counts()["cat_update"] - before
-        check(n == 1, f"cat_update {tag}: {n} launches for one call")
+        check(n == calls, f"cat_update {tag}: {n} launches for one call, "
+                          f"{calls} wanted")
         b_p, c_p = ref.cat_update_ref(bits, va, Pc)
         check(torch.equal(b_k, b_p) and torch.equal(
             c_k.view(torch.int32), c_p.view(torch.int32)),
@@ -2067,7 +2104,8 @@ def cat_update_case(torch, ops, ref, pool, sets, Pc, tag, card,
     how = (f"cold ({len(pool)} copies of the words cycled) "
            if len(pool) > 1 else "")
     log(f"[kernel] cat_update {tag} V={V} P={Pc} W={W} R={R}: equal to "
-        f"plain, bits and CAR bit for bit, one launch a call, on "
+        f"plain, bits and CAR bit for bit, {calls} launch"
+        f"{'es' if calls > 1 else ''} a call, on "
         f"{len(sets)} touch sets; {how}{ms * 1e3:.2f} us "
         f"({100 * bnd[0] / ms:.1f}% of the bound), warm (one copy) "
         f"{warm_ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, library "
@@ -2075,7 +2113,7 @@ def cat_update_case(torch, ops, ref, pool, sets, Pc, tag, card,
     return dict(case=tag, pages=V, page_objs=Pc, words=W, touches=R, ms=ms,
                 warm_ms=warm_ms, cold=len(pool) > 1, plain_ms=plain_ms,
                 bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=0.0,
-                launches_per_call=1)
+                launches_per_call=calls)
 
 
 def phase_cat_update(torch, ops, ref, g, card: str, rate: float) -> dict:
@@ -2084,8 +2122,10 @@ def phase_cat_update(torch, ops, ref, g, card: str, rate: float) -> dict:
     bit against ref.cat_update_ref: touches past the last page beside -1
     and 2^31 - 1, no touches, 65,536 touches, views whose words and
     touches lie off 16 bytes (the plain loads, a ragged last chunk), 2
-    words a page, every page of 1,024 touched, and pages so wide that a
-    chunk holds 2 of them (no bulk copy) or 1."""
+    words a page, every page of 1,024 touched, pages so wide that a
+    chunk holds 2 of them or 1, and pages split over blocks (CAT_SPLIT:
+    every block of every page touched at both ends, twice; touches past
+    the end beside -1 and 2^31 - 1)."""
     i32 = torch.int32
     V, Pc, R = CAT_PAGES, CAT_CARDS, CAT_TOUCHES
 
@@ -2122,6 +2162,13 @@ def phase_cat_update(torch, ops, ref, g, card: str, rate: float) -> dict:
         cases.append(cat_update_case(
             torch, ops, ref, [cat_words(torch, g, Vh, Ph)], sets(Vh, Ph, R),
             Ph, f"{Ph // 32} words a page", card, rate))
+    for Vs, Ps in CAT_SPLIT:
+        Ws = -(-Ps // 32)
+        cases.append(cat_update_case(
+            torch, ops, ref, [cat_words(torch, g, Vs, Ps)],
+            split_touches(torch, sets(Vs, Ps, R), Vs, Ps), Ps,
+            f"split: {Vs} page{'s' if Vs > 1 else ''} of {Ws} words",
+            card, rate))
     rec = kv_record("cat_update", "src/repro_torch/kernels/csrc/cat_update.cu",
                     "src/repro/kernels/cat_update.py:55", main["ms"],
                     main["plain_ms"], None, 0.0,
@@ -4099,21 +4146,123 @@ def logged_run(torch, ops, step, params, state, tok, steps: int, tag: str,
     return state, logits_all, ms, launches
 
 
+def expert_fields_match(torch, got, want):
+    """The expert planes of two serve states in their logical views, as
+    plane_fields_match compares KV planes."""
+    same, worst, n = True, 0.0, 0
+    for a, b in zip(got.extra, want.extra):
+        for k in a._fields:
+            x, y = a.view(k), b.view(k)
+            n += 1
+            if x.is_floating_point():
+                fin, err = field_err(torch, x, y)
+                same &= fin
+                worst = max(worst, err)
+            else:
+                same &= bool(torch.equal(x, y))
+    return same, worst, n
+
+
+def unit_mesh_tree(M, tree, mesh, spec_tree):
+    """``tree`` laid out by its specs on a mesh of one rank, each DTensor's
+    local tensor the leaf itself (``launch.mesh.distribute`` copies a
+    split leaf; kimi-k2's 33.8 GB slab has no room for a copy)."""
+    from torch.distributed.tensor import DTensor
+    check(mesh.size() == 1, "unit_mesh_tree: a mesh of more than one rank")
+    real = M.distribute
+    M.distribute = lambda x, mesh_, spec: DTensor.from_local(
+        x, mesh_, M.placements(mesh_, spec))
+    try:
+        return M.distribute_tree(tree, mesh, spec_tree)
+    finally:
+        M.distribute = real
+
+
+def mesh_decode_cell(torch, m, api, cfg, mesh, params, dparams, name,
+                     shape, prefix, want, g, card: str) -> dict:
+    """One [meshdecode] cell: MESHDEC_STEPS greedy steps on the plain path
+    and on the mesh from one seeded state, checked as phase_mesh_decode
+    says; returns its times, launches and logit error."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    M = m.mesh
+    dev = torch.device("cuda")
+    kvc, mode = api.kv_plan(cfg, shape, 1)
+    state = api.init_decode_state(cfg, shape, shards=1, device=dev)
+    if mode == "sparse":
+        for p in kv_planes(state):
+            fill_sparse_slab(torch, kvc, p, g)
+        state.lengths.fill_(prefix)
+    else:
+        fill_kv_prefix(torch, state, g, prefix)
+    tok = torch.randint(0, cfg.vocab, (shape.global_batch,), generator=g,
+                        device=dev, dtype=torch.int32)
+    mstate = api.serve_state_on_mesh(cfg, shape, state.clone(), mesh, 1)
+    torch.cuda.synchronize()
+    step = api.decode_step(cfg, shape, shards=1)
+    tag = f"meshdecode {name}"
+    state, want_logits, ms_plain, l_plain = logged_run(
+        torch, m.ops, step, params, state, tok, MESHDEC_STEPS, tag, want)
+    tok_spec = api.batch_specs(cfg, shape)["tokens"][1]
+    with M.use_mesh(mesh), implicit_replication():
+        mstate, got_logits, ms_mesh, l_mesh = logged_run(
+            torch, m.ops, step, dparams, mstate, tok, MESHDEC_STEPS, tag,
+            want, lambda t: M.distribute(t, mesh, tok_spec))
+    worst = max(rel_err(a, b) for a, b in zip(got_logits, want_logits))
+    check(worst <= LAYOUT_TOL,
+          f"[{tag}] the mesh step's logits are {worst:.3g} of the largest "
+          f"off the plain step's")
+    whole = api.serve_state_whole(cfg, shape, mstate, mesh, 1)
+    same, fworst, n = plane_fields_match(torch, api, cfg, shape, whole,
+                                         state, 1)
+    e_same, e_worst, e_n = expert_fields_match(torch, whole, state)
+    same, fworst, n = same and e_same, max(fworst, e_worst), n + e_n
+    check(same, f"[{tag}] an int or bool plane field differs")
+    check(fworst <= LAYOUT_TOL, f"[{tag}] a float plane field is "
+                                f"{fworst:.3g} off")
+    check(bool(torch.equal(whole.lengths, state.lengths)),
+          f"[{tag}] lengths differ")
+    check(l_mesh == l_plain, f"[{tag}] launches on the mesh {l_mesh} "
+                             f"against {l_plain} plain")
+    pm, mm = statistics.median(ms_plain[1:]), statistics.median(ms_mesh[1:])
+    from repro_torch.configs import get_config
+    full = get_config(cfg.name).n_layers
+    planes = f"{mode} plane{'s' if mode == 'dense' else ''}" + (
+        f" and {len(whole.extra)} expert plane"
+        f"{'s' if len(whole.extra) > 1 else ''}" if e_n else "")
+    log(f"[{tag}] {cfg.name} {cfg.n_layers} of {full} layers at full "
+        f"width, bf16, {planes} ({shape.global_batch} x {shape.seq_len} "
+        f"tokens, from {prefix}): {MESHDEC_STEPS} greedy steps on a (data "
+        f"1, model 1) mesh of an NCCL group of one rank == the plain step: "
+        f"logits within {worst:.3g} of the largest (tolerance "
+        f"{LAYOUT_TOL}), {n} plane fields (ints and bools bit for bit, "
+        f"floats within {fworst:.3g}); ms a step plain {pm:.3f} (first "
+        f"{ms_plain[0]:.1f}), on the mesh {mm:.3f} (first "
+        f"{ms_mesh[0]:.1f}); launches a step "
+        f"{ {k: v / MESHDEC_STEPS for k, v in l_mesh.items() if v} } both "
+        f"ways [{card}]")
+    del state, mstate, whole
+    torch.cuda.empty_cache()
+    return {"ms_plain": pm, "ms_mesh": mm, "launches": l_mesh,
+            "logit_err": worst}
+
+
 def phase_mesh_decode(torch, m, configs, api, card: str) -> dict:
-    """The serve step on a model mesh on the card: llama3-8b at full
-    width, MESHDEC_LAYERS layers, bf16, seeded weights, parameters laid out
-    on a (1, 1) ("data", "model") mesh over an NCCL group of one rank and
-    the serve state by ``api.serve_state_on_mesh``.  Dense decode (as
-    [lm]: 8 sequences, 2,048 seeded tokens of context) and long_500k
-    (shards = dp = 1, each layer's sparse plane filled as [kvsparse]),
+    """The serve step on a model mesh on the card: parameters laid out on
+    a (1, 1) ("data", "model") mesh over an NCCL group of one rank, bf16,
+    seeded weights, and the serve state by ``api.serve_state_on_mesh``.
+    llama3-8b at full width, MESHDEC_LAYERS layers: dense decode (as [lm]:
+    8 sequences, 2,048 seeded tokens of context) and long_500k (shards =
+    dp = 1, each layer's sparse plane filled as [kvsparse]); kimi-k2 at
+    full width, 1 of 61 layers, through the expert plane (as [lmexpert];
+    its parameters shared with the plain step, ``unit_mesh_tree``).
     MESHDEC_STEPS greedy steps on the mesh and on the plain path from the
     same state: logits within LAYOUT_TOL of the largest each step; every
-    int and bool field of every plane bit for bit, floats within
-    LAYOUT_TOL, after ``serve_state_whole``; the mesh step's kernel
-    launches equal the plain step's (paged_attention on the dense step;
-    page_scores and gather_rows on the sparse one); ms a step both ways.
-    Returns the mesh steps' launches."""
-    from torch.distributed.tensor.experimental import implicit_replication
+    int and bool field of every KV and expert plane bit for bit, floats
+    within LAYOUT_TOL, after ``serve_state_whole``; the mesh step's kernel
+    launches equal the plain step's (paged_attention on the dense steps;
+    page_scores and gather_rows on the sparse one; gather_rows, the
+    expert fetch, on kimi-k2's); ms a step both ways.  Returns the mesh
+    steps' launches."""
     M = m.mesh
     dev = torch.device("cuda")
     cfg = meshdec_config(configs)
@@ -4134,68 +4283,25 @@ def phase_mesh_decode(torch, m, configs, api, card: str) -> dict:
                   {"page_scores": cfg.n_layers,
                    "gather_rows": 2 * cfg.n_layers}))
         for name, shape, prefix, want in cells:
-            kvc, mode = api.kv_plan(cfg, shape, 1)
-            state = api.init_decode_state(cfg, shape, shards=1, device=dev)
-            if mode == "sparse":
-                for p in kv_planes(state):
-                    fill_sparse_slab(torch, kvc, p, g)
-                state.lengths.fill_(prefix)
-            else:
-                fill_kv_prefix(torch, state, g, prefix)
-            tok = torch.randint(0, cfg.vocab, (shape.global_batch,),
-                                generator=g, device=dev, dtype=torch.int32)
-            mstate = api.serve_state_on_mesh(cfg, shape, state.clone(), mesh,
-                                             1)
-            torch.cuda.synchronize()
-            step = api.decode_step(cfg, shape, shards=1)
-            tag = f"meshdecode {name}"
-            state, want_logits, ms_plain, l_plain = logged_run(
-                torch, m.ops, step, params, state, tok, MESHDEC_STEPS, tag,
-                want)
-            tok_spec = api.batch_specs(cfg, shape)["tokens"][1]
-            with M.use_mesh(mesh), implicit_replication():
-                mstate, got_logits, ms_mesh, l_mesh = logged_run(
-                    torch, m.ops, step, dparams, mstate, tok, MESHDEC_STEPS,
-                    tag, want, lambda t: M.distribute(t, mesh, tok_spec))
-            worst = max(rel_err(a, b) for a, b in zip(got_logits,
-                                                      want_logits))
-            check(worst <= LAYOUT_TOL,
-                  f"[{tag}] the mesh step's logits are {worst:.3g} of the "
-                  f"largest off the plain step's")
-            whole = api.serve_state_whole(cfg, shape, mstate, mesh, 1)
-            same, fworst, n = plane_fields_match(torch, api, cfg, shape,
-                                                 whole, state, 1)
-            check(same, f"[{tag}] an int or bool plane field differs")
-            check(fworst <= LAYOUT_TOL,
-                  f"[{tag}] a float plane field is {fworst:.3g} off")
-            check(bool(torch.equal(whole.lengths, state.lengths)),
-                  f"[{tag}] lengths differ")
-            check(l_mesh == l_plain, f"[{tag}] launches on the mesh {l_mesh} "
-                                     f"against {l_plain} plain")
-            pm, mm = statistics.median(ms_plain[1:]), statistics.median(
-                ms_mesh[1:])
-            log(f"[{tag}] llama3-8b {cfg.n_layers} of 32 layers at full "
-                f"width, bf16, {mode} plane{'s' if mode == 'dense' else ''} "
-                f"({shape.global_batch} x {shape.seq_len} tokens, from "
-                f"{prefix}): {MESHDEC_STEPS} greedy steps on a (data 1, "
-                f"model 1) mesh of an NCCL group of one rank == the plain "
-                f"step: logits within {worst:.3g} of the largest (tolerance "
-                f"{LAYOUT_TOL}), {n} plane fields (ints and bools bit for "
-                f"bit, floats within {fworst:.3g}); ms a step plain "
-                f"{pm:.3f} (first {ms_plain[0]:.1f}), on the mesh {mm:.3f} "
-                f"(first {ms_mesh[0]:.1f}); launches a step "
-                f"{ {k: v / MESHDEC_STEPS for k, v in l_mesh.items() if v} } "
-                f"both ways [{card}]")
-            out[name] = {"ms_plain": pm, "ms_mesh": mm, "launches": l_mesh,
-                         "logit_err": worst}
-            del state, mstate, whole
-            torch.cuda.empty_cache()
+            out[name] = mesh_decode_cell(torch, m, api, cfg, mesh, params,
+                                         dparams, name, shape, prefix, want,
+                                         g, card)
+        params = dparams = None
+        torch.cuda.empty_cache()
+        kcfg = lm_configs(configs)[1]
+        params = api.init_params(kcfg, seed=SEED + 29, device=dev)
+        dparams = unit_mesh_tree(M, params, mesh, api.param_pspecs(kcfg))
+        out["kimi-k2"] = mesh_decode_cell(
+            torch, m, api, kcfg, mesh, params, dparams, "kimi-k2",
+            configs.ShapeConfig("serve", LM_SEQ, LM_BATCH, "decode"),
+            LM_PREFIX, {"paged_attention": kcfg.n_layers,
+                        "gather_rows": 3 * kcfg.n_layers}, g, card)
     finally:
         m.dist.destroy_process_group()
-        del params
+        params = dparams = None
         torch.cuda.empty_cache()
-    launches = {k: out["dense"]["launches"][k] + out["long_500k"][
-        "launches"][k] for k in out["dense"]["launches"]}
+    launches = {k: sum(c["launches"][k] for c in out.values())
+                for k in out["dense"]["launches"]}
     log(f"[meshdecode] took {time.time() - t0:.1f}s [{card}]")
     return {"cells": out, "launches": launches}
 
@@ -4207,26 +4313,33 @@ def phase_dryrun(torch, card: str) -> None:
     split over every chip, the norms whole), the FLOPs a device beside the
     analytic model's, the collectives by kind, MemTracker's peak and the
     trace's seconds; gradient sync in the train cells; in the long_500k
-    cell the sparse combine's three all-gathers over dp a layer."""
+    cell the sparse combine's three all-gathers over dp a layer; in
+    kimi-k2's cell no all-gather of the hot store and its products'
+    partial sums all-reduced over dp, two a layer."""
     from repro_torch import configs
+    from repro_torch.analysis import comm
     from repro_torch.launch import dryrun, mesh
     from repro_torch.models import api
     from repro_torch.tree import leaves
-    real = mesh.all_gather
-    gathers = []
+    real, real_summary = mesh.all_gather, comm.collective_summary
+    gathers, records = [], []
 
     def spy(x, m, logical="dp"):
         gathers.append(logical)
         return real(x, m, logical)
+
+    def summary(recs):
+        records[:] = recs
+        return real_summary(recs)
     for arch, sname, kind in DRYRUN_CELLS:
         gathers.clear()
-        mesh.all_gather = spy
+        mesh.all_gather, comm.collective_summary = spy, summary
         try:
             rec = dryrun.run_cell(arch, sname, kind,
                                   layers_override=DRYRUN_LAYERS,
                                   device="cuda")
         finally:
-            mesh.all_gather = real
+            mesh.all_gather, comm.collective_summary = real, real_summary
         check(rec["status"] == "ok", f"[dryrun] {arch} {sname} {kind}: "
                                      f"{rec.get('error')}\n"
                                      f"{rec.get('traceback', '')}")
@@ -4263,6 +4376,24 @@ def phase_dryrun(torch, card: str) -> None:
         else:
             check(gathers == [], f"[dryrun] all-gathers {gathers} outside "
                                  "a sparse cell")
+        if api._uses_expert_plane(cfg):
+            epc = api._expert_cfg(cfg)
+            hot = (epc.hot_slots * cfg.d_model * cfg.d_ff
+                   * epc.dtype.itemsize)
+            dp = rec["mesh_shape"]["data"] * rec["mesh_shape"].get("pod", 1)
+            C = -(-shape.global_batch * cfg.moe_topk * 2 // epc.hot_slots)
+            partial = epc.hot_slots * max(8, C) * cfg.d_ff * 4
+            held = [r for r in records if r["kind"] == "all-gather"
+                    and r["out_bytes"] == hot]
+            sums = [r for r in records if r["kind"] == "all-reduce"
+                    and r["group"] == dp and r["out_bytes"] == partial]
+            check(not held and len(sums) == 2 * DRYRUN_LAYERS,
+                  f"[dryrun] {arch}: {len(held)} all-gathers of the hot "
+                  f"store, {len(sums)} all-reduces of the expert products' "
+                  f"partial sums ({2 * DRYRUN_LAYERS} wanted)")
+            combine = (f"; no all-gather of the hot store ({hot:,} B a "
+                       f"tensor), the products' partial sums all-reduced "
+                       f"over dp {len(sums)} times ({partial:,} B each)")
         mem = rec["memory"]
         log(f"[dryrun] {arch} {sname} on {kind} {rec['mesh_shape']}, "
             f"{DRYRUN_LAYERS} of {configs.get_config(arch).n_layers} layers: "

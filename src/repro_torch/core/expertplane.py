@@ -30,11 +30,13 @@ Where the port departs from the JAX form, and why:
   trip count of masked updates; nothing on either path syncs with the
   host.
 * **On a model mesh** each rank keeps a local plane (its d_model chunk of
-  the hot store, a copy of the bookkeeping; see the section below).  The
-  fetch reaches the row-copy kernel there too: where the slab's split
-  differs from the hot store's (the experts or d_ff split over "model"),
-  the plan's rows are exchanged first and the kernel copies them from
-  that exchanged pool.
+  the hot store, a copy of the bookkeeping; see the section below) and
+  computes the experts' products on that chunk, as XLA's partitioner
+  splits JAX's einsums along the hot store's layout.  The fetch reaches
+  the row-copy kernel there too: where the slab's split differs from the
+  hot store's (the experts or d_ff split over "model"), the plan's rows
+  are exchanged first and the kernel copies them from that exchanged
+  pool.
 """
 from __future__ import annotations
 
@@ -250,17 +252,18 @@ def moe_decode(cfg: ExpertPlaneConfig, s: ExpertPlaneState, router,
     mesh = far.current_mesh()
     if mesh is not None and isinstance(x, DTensor):
         return _moe_decode_mesh(cfg, mesh, s, router, x, slabs, mode)
-    S = cfg.hot_slots
-    y = _moe(cfg, s, router, x, slabs, mode, _slab_sources,
-             lambda: (s.hot_wi[:S], s.hot_wg[:S], s.hot_wo[:S]))
+    y = _moe(cfg, s, router, x, x, slabs, mode, _slab_sources,
+             lambda t: t)
     return y, s
 
 
-def _moe(cfg: ExpertPlaneConfig, s: ExpertPlaneState, router, x, slabs,
-         mode, sources, hot) -> torch.Tensor:
-    """The step on plain tensors: route, fetch (``ensure_resident`` with
-    ``sources``), dispatch by slot, the experts' products against the
-    hot store that ``hot()`` gives after the fetch, combine."""
+def _moe(cfg: ExpertPlaneConfig, s: ExpertPlaneState, router, x, xd, slabs,
+         mode, sources, reduce) -> torch.Tensor:
+    """The step on plain tensors: route the tokens ``x`` [T, d], fetch
+    (``ensure_resident`` with ``sources``), dispatch the columns ``xd``
+    [T, d'] of the tokens by slot (``x`` itself, or on a mesh this rank's
+    d_model chunk, the hot store's), the experts' products (``_experts``,
+    their partial sums through ``reduce``), combine: y [T, d']."""
     T, d = x.shape
     E, S, K = cfg.n_experts, cfg.hot_slots, cfg.topk
     C = cfg.capacity or max(8, -(-T * K * 2 // S))
@@ -294,23 +297,30 @@ def _moe(cfg: ExpertPlaneConfig, s: ExpertPlaneState, router, x, slabs,
     keep = (slot >= 0) & (rank < C)
     dst = torch.where(keep, slot * C + rank, S * C)
 
-    xe = torch.zeros((S * C + 1, d), dtype=cfg.dtype, device=dev)
-    xe[dst] = x.to(cfg.dtype).repeat_interleave(K, dim=0)
-    xe = xe[:-1].view(S, C, d)
+    dc = xd.shape[1]
+    xe = torch.zeros((S * C + 1, dc), dtype=cfg.dtype, device=dev)
+    xe[dst] = xd.to(cfg.dtype).repeat_interleave(K, dim=0)
+    ye = _experts(cfg, s, xe[:-1].view(S, C, dc), reduce)
+    ye = torch.cat([ye.reshape(S * C, dc),
+                    torch.zeros((1, dc), dtype=cfg.dtype, device=dev)])
 
-    hot_wi, hot_wg, hot_wo = hot()
-    g = _bmm_f32(xe, hot_wg)
-    i = _bmm_f32(xe, hot_wi)
-    h = (torch.nn.functional.silu(g) * i).to(cfg.dtype)
-    ye = _bmm_f32(h, hot_wo).to(cfg.dtype)
-    ye = torch.cat([ye.reshape(S * C, d),
-                    torch.zeros((1, d), dtype=cfg.dtype, device=dev)])
-
-    yt = ye[dst].view(T, K, d).to(torch.float32)
+    yt = ye[dst].view(T, K, dc).to(torch.float32)
     w = torch.where(keep.view(T, K), gate, 0.0)
     w = w / w.sum(dim=-1, keepdim=True).clamp_min(1e-9)
     y = torch.einsum("tkd,tk->td", yt, w)
     return y.to(x.dtype)
+
+
+def _experts(cfg: ExpertPlaneConfig, s: ExpertPlaneState, xe, reduce):
+    """The hot store's SwiGLU on the dispatched tokens xe [S, C, d'] (d'
+    the hot store's d_model, whole or this rank's chunk): g and i in f32,
+    each summed by ``reduce`` (over the ranks that hold the other chunks
+    of d_model, or nothing), then ye [S, C, d'] in ``cfg.dtype``."""
+    S = cfg.hot_slots
+    g = reduce(_bmm_f32(xe, s.hot_wg[:S]))
+    i = reduce(_bmm_f32(xe, s.hot_wi[:S]))
+    h = (torch.nn.functional.silu(g) * i).to(cfg.dtype)
+    return _bmm_f32(h, s.hot_wo[:S]).to(cfg.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -320,7 +330,7 @@ def _moe(cfg: ExpertPlaneConfig, s: ExpertPlaneState, router, x, slabs,
 # (None, None, dp) for hot_wo (d_model split over dp) with the bookkeeping
 # replicated.  Here each rank keeps a local plane: its chunk of d_model of
 # the hot store (rank r of dp's n ranks holds [r*d/n, (r+1)*d/n)) and a
-# whole copy of the bookkeeping.
+# whole copy of the bookkeeping; the step computes on that chunk.
 
 _SPLIT_DIM = {"hot_wi": 1, "hot_wg": 1, "hot_wo": 2}
 
@@ -406,25 +416,25 @@ def _mesh_sources(mesh, hot_pls):
 
 def _moe_decode_mesh(cfg: ExpertPlaneConfig, mesh, s: ExpertPlaneState,
                      router, x, slabs, mode):
-    """The step on a model mesh: the tokens (split over dp) and the router
+    """The step on a model mesh, as XLA's partitioner splits JAX's step
+    along the hot store's layout: the tokens (split over dp) and the router
     gathered whole, so every rank plans the same fetch on its copy of the
     bookkeeping; the fetch writes each rank's chunk of the rows
-    (``_mesh_sources``); the hot store is gathered over dp before the
-    products (as ``launch.mesh.gather_dp`` gathers an FSDP weight), and the
-    result is laid out as ``x`` (every rank computes the whole batch's
-    experts)."""
+    (``_mesh_sources``); each rank dispatches its d_model chunk of the
+    tokens and computes the products on its chunk of the hot store, g and
+    i as partial sums all-reduced over dp, ye and the combine as its chunk
+    of d_model; the result is laid out as ``x``.  No rank holds the whole
+    hot store."""
     from torch.distributed.tensor import Replicate
     rep = [Replicate()] * mesh.ndim
     xr = x.redistribute(mesh, rep).to_local()
     rr = router.redistribute(mesh, rep).to_local()
-    S = cfg.hot_slots
-    hot_pls = _hot_placements(mesh)
-
-    def hot():
-        return tuple(
-            DTensor.from_local(h[:S], mesh, pl).redistribute(
-                mesh, rep).to_local()
-            for h, pl in zip((s.hot_wi, s.hot_wg, s.hot_wo), hot_pls))
-    y = _moe(cfg, s, rr, xr, slabs, mode, _mesh_sources(mesh, hot_pls), hot)
-    y = DTensor.from_local(y, mesh, rep).redistribute(mesh, x.placements)
-    return y, s
+    r, _ = far.coordinate(mesh, "dp")
+    c = s.hot_wi.shape[1]
+    y = _moe(cfg, s, rr, xr, xr[:, r * c:(r + 1) * c], slabs, mode,
+             _mesh_sources(mesh, _hot_placements(mesh)),
+             lambda t: far.all_reduce(t, mesh, "dp"))
+    T, d = xr.shape
+    y = DTensor.from_local(y, mesh, far.placements(mesh, (None, "dp")),
+                           shape=torch.Size((T, d)), stride=(d, 1))
+    return y.redistribute(mesh, x.placements), s

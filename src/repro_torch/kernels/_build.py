@@ -133,9 +133,10 @@ def load_library() -> ctypes.CDLL:
             I32, P, P, P, P, P, P, P, P, P, P, P, I64, I32, I32, I32, I64,
             I32, I32, I32, I32, I32, I32, ctypes.c_float, P]
         lib.repro_paged_attention_mma.restype = I32
-        # (device, bits_in, vaddrs, bits_out, car, V, W, R, page_objs, stream)
-        lib.repro_cat_update.argtypes = [I32, P, P, P, P, I64, I32, I64, I32,
-                                         P]
+        # (device, bits_in, vaddrs, bits_out, car, acc, V, W, R, page_objs,
+        #  stream)
+        lib.repro_cat_update.argtypes = [I32, P, P, P, P, P, I64, I32, I64,
+                                         I32, P]
         lib.repro_cat_update.restype = I32
         lib.repro_error_string.argtypes = [I32]
         lib.repro_error_string.restype = ctypes.c_char_p

@@ -47,9 +47,10 @@ DTensor takes the run for compile tracing and drops its sharding cache
 creates itself real, on the card.  A decode cell runs every kernel's
 plain version (``kernel_impl="ref"``), which is what JAX's dry-run lowers
 (its ``"auto"`` is the jnp reference off a TPU); the attention repeats on
-the "model" ranks of a dp coordinate and the expert plane's products on
-every rank, as ``models.api`` and ``core.expertplane`` say, so their
-traced FLOPs exceed the analytic model's even split.
+the "model" ranks of a dp coordinate, as ``models.api`` says (JAX's KV
+frames are replicated there too), and the expert plane's products split
+over dp alone (``core.expertplane``), so their traced FLOPs exceed the
+analytic model's even split.
 """
 from __future__ import annotations
 

@@ -442,6 +442,19 @@ def all_gather(x: torch.Tensor, mesh, logical="dp") -> torch.Tensor:
     return y.to(torch.bool) if x.dtype == torch.bool else y
 
 
+def all_reduce(x: torch.Tensor, mesh, logical="dp") -> torch.Tensor:
+    """``x`` summed over a logical axis of ``mesh`` (``lax.psum``), through
+    the functional collective, which the dry-run's
+    ``analysis.comm.TraceCounter`` counts; ``x`` itself when the axis
+    names no mesh axis."""
+    sub = axis_mesh(mesh, logical)
+    if sub is None:
+        return x
+    c10d = torch.ops._c10d_functional
+    return c10d.wait_tensor(c10d.all_reduce(
+        x.contiguous(), "sum", sub.get_group().group_name))
+
+
 def dividing_axes(mesh, logical, n: int):
     """A spec entry for a dimension of ``n`` split over a logical axis:
     the logical axis when its ranks divide ``n``, else its minor-most mesh

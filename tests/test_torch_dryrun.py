@@ -201,6 +201,47 @@ def test_every_smoke_decode_cell_traces(arch, monkeypatch):
                 (rank, plain.flops)
 
 
+def test_kimi_decode_splits_the_expert_products_over_dp(monkeypatch):
+    """kimi-k2's smoke decode cell traced on a fake 8-rank (4, 2) mesh: as
+    XLA splits JAX's expert einsums along the hot store's layout (d_model
+    over dp), a rank's expert products (every ``_bmm_f32`` of the expert
+    plane) take the plain step's FLOPs over dp = 4, within 5%, and no
+    all-gather brings a rank the hot store (``[S, d, F]`` of
+    ``hot_wi``/``hot_wg``/``hot_wo``): their partial sums are all-reduced
+    over dp instead, twice a layer.  (d_ff 40: at the smoke config's 32
+    the hot store's bytes are those of the embedding table's gather.)"""
+    from torch.utils.flop_counter import bmm_flop
+    from repro_torch.core import expertplane
+    cfg = dataclasses.replace(_smoke("kimi-k2-1t-a32b"), d_ff=40)
+    shape = tcfgs.ShapeConfig("smoke", 64, 8, "decode")
+    flops = []
+    real = expertplane._bmm_f32
+
+    def spy(a, b):
+        flops.append(bmm_flop(a.shape, b.shape))
+        return real(a, b)
+    monkeypatch.setattr(expertplane, "_bmm_f32", spy)
+    with dryrun.fake_world(8):
+        mesh = tmesh.make_host_mesh(4, 2, device_type="cpu")
+        fn, args, specs = dryrun.build_cell(cfg, shape, mesh)
+        fn(args[0], api.init_decode_state(cfg, shape, device="meta"),
+           args[2])
+        plain = sum(flops)
+        flops.clear()
+        records = comm_records(fn, args, specs, mesh, "decode", cfg, shape)
+    rank = sum(flops)
+    assert plain > 0 and len(flops) == 3 * cfg.n_layers
+    assert abs(rank * 4 - plain) <= 0.05 * plain, (rank, plain)
+    epc = api._expert_cfg(cfg)
+    hot = epc.hot_slots * cfg.d_model * cfg.d_ff * epc.dtype.itemsize
+    gathers = [r for r in records if r["kind"] == "all-gather"]
+    assert not [r for r in gathers if r["out_bytes"] == hot], gathers
+    partial = epc.hot_slots * 8 * cfg.d_ff * 4   # [S, C, F] f32
+    assert len([r for r in records if r["kind"] == "all-reduce"
+                and r["group"] == 4 and r["out_bytes"] == partial]) \
+        == 2 * cfg.n_layers, records
+
+
 def comm_records(fn, args, specs, mesh, kind, cfg, shape) -> list:
     """The collectives a traced step issues, each as ``TraceCounter``
     records it."""

@@ -431,7 +431,8 @@ def test_paged_attention_matches_pallas(b, kvh, g, dh, f, p, npg, dtype):
 
 CAT_CASES = [(16, 8, 24, 0), (8, 64, 40, 0), (5, 33, 12, 0),
              (4096, 8, 1024, 0), (16, 8, 24, 3), (5, 33, 12, 3),
-             (4, 8, 200, 3)]
+             (4, 8, 200, 3), (3, 8200 * 32, 64, 3),
+             (2, 8193 * 32 - 5, 64, 1)]
 
 
 def _cat_inputs(v, p, r, past):
@@ -456,7 +457,9 @@ def test_cat_update_matches_pallas(v, p, r, past):
     interpret mode, with duplicate touches, skipped (-1) ones, touches up
     to ``past`` pages beyond the last (dropped), and words whose top bit is
     set (negative as int32).  At (4, 8, 200) the touches outnumber the
-    pages' cards and every page is touched."""
+    pages' cards and every page is touched.  The last two take pages
+    wider than the kernel's chunk of 8,192 words (8,200 words; 8,193 with
+    a ragged last word), which it splits over blocks."""
     bits, vaddrs = _cat_inputs(v, p, r, past)
     got_bits, got_car = ops.cat_update(torch.from_numpy(bits.view(np.int32)),
                                        torch.from_numpy(vaddrs), page_objs=p)

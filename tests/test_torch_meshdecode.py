@@ -23,7 +23,8 @@ bit for bit, the float fields within 1e-5 of the largest.  The cases:
   xlstm-350m, seamless-m4t-medium (cross attention).
 
 The same file holds the CPU checks of the local planes themselves
-(``kvplane.local_plane``/``concat_planes``, ``expertplane``'s).  A rank
+(``kvplane.local_plane``/``concat_planes``, ``expertplane``'s, and an
+expert plane's chunk through a step on a fake mesh).  A rank
 whose check fails exits non-zero; the parent then kills the others and
 fails.  Each spawn has a hard limit of 120 s.
 """
@@ -166,6 +167,49 @@ def test_local_expert_planes_concatenate_to_the_plain_plane():
           expertplane.ExpertPlaneState._fields)
     with pytest.raises(ValueError, match="evenly"):
         expertplane.local_plane(s, 0, 3)
+
+
+def test_local_expert_plane_keeps_its_chunk_through_a_step(monkeypatch):
+    """kimi-k2's smoke decode step on a fake 8-rank (4, 2) mesh, in one
+    process (meta shards): each layer's local plane holds its d_model
+    chunk of the hot store, [S, d/4, F] and [S, F, d/4] beside its trash
+    slot, before and after the step, and the experts' products take that
+    chunk of the dispatched tokens."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import api
+    cfg = configs.get_smoke("kimi-k2-1t-a32b")
+    shape = configs.ShapeConfig("smoke", 64, 8, "decode")
+    S, d, F = api._expert_cfg(cfg).hot_slots, cfg.d_model, cfg.d_ff
+    seen = []
+    real = expertplane._experts
+
+    def spy(cfg_, s, xe, reduce):
+        seen.append((tuple(xe.shape), tuple(s.hot_wg.shape)))
+        return real(cfg_, s, xe, reduce)
+    monkeypatch.setattr(expertplane, "_experts", spy)
+    with dryrun.fake_world(8):
+        mesh = M.make_host_mesh(4, 2, device_type="cpu")
+        fn, args, specs = dryrun.build_cell(cfg, shape, mesh)
+        params, state, tok = dryrun.lay_out(args, specs, mesh, "decode",
+                                            cfg, shape)
+
+        def shapes(st):
+            return [(p.hot_wi.shape, p.hot_wg.shape, p.hot_wo.shape)
+                    for p in st.extra]
+        want = [((S + 1, d // 4, F),) * 2 + ((S + 1, F, d // 4),)] * \
+            cfg.n_layers
+        assert shapes(state) == want
+        with M.use_mesh(mesh), implicit_replication():
+            new, _ = fn(params, state, tok)
+        assert shapes(new) == want
+        assert [p is q for p, q in zip(new.extra, state.extra)] == \
+            [True] * cfg.n_layers
+    assert len(seen) == cfg.n_layers
+    for xe, wg in seen:
+        assert xe[0] == S and xe[2] == d // 4 and wg == (S + 1, d // 4, F)
 
 
 def test_a_sparse_plane_does_not_split_by_batch():

@@ -97,8 +97,8 @@ def build_variants() -> dict:
             lib.cuv_three_steps.argtypes = [P, P, P, P, I64, I32, I64, I32,
                                             P]
         else:
-            lib.repro_cat_update.argtypes = [I32, P, P, P, P, I64, I32, I64,
-                                             I32, P]
+            lib.repro_cat_update.argtypes = [I32, P, P, P, P, P, I64, I32,
+                                             I64, I32, P]
         libs[name] = lib
     return libs
 
@@ -127,7 +127,8 @@ def main() -> int:
             car = torch.empty((V,), dtype=torch.float32, device=dev)
             _build.check(lib.repro_cat_update(
                 0, bits.data_ptr(), va.data_ptr(), out.data_ptr(),
-                car.data_ptr(), V, W, va.shape[0], Pc, stream()), "variant")
+                car.data_ptr(), None, V, W, va.shape[0], Pc, stream()),
+                "variant")
             return out, car
         return run
 
