@@ -12,6 +12,9 @@
    frame slots).  JAX gathers, then scatters; each row lands the same.
 3. **Finish**: one profiling scatter pass and one batched gather per tier.
 
+Under a recording profiler the plan's blocks and the execute's calls run
+under ``core.trace`` spans (``engine.plan.*``, ``engine.execute.*``).
+
 Batch semantics are those of the JAX engine (DESIGN.md §3): a negative id
 is a padded no-op request whose scatters land in the trash rows.
 ``mode="reference"`` replays the same plan through the scalar helpers of
@@ -34,6 +37,7 @@ import torch
 from ..kernels import ops as kops
 from . import paths
 from . import state as st
+from . import trace
 from .layout import FREE, LOCAL, REMOTE, PlaneConfig
 from .paths import INF32, add, put, take
 
@@ -202,39 +206,43 @@ def plan_access(cfg: PlaneConfig, s: st.PlaneState, obj_ids: torch.Tensor,
     Q = cfg.prefetch_budget
     V, P = cfg.num_vpages, cfg.page_objs
     dev = obj_ids.device
-    valid = obj_ids >= 0
-    vaddr = s.obj_loc[obj_ids.clamp_min(0)]
-    v = vaddr // P
-    local = s.backing[v] == LOCAL
-    if all_runtime:
-        pg_mask = torch.zeros_like(local)
-        rt_mask = valid & ~local
-    elif split_by_psf:
-        psf = s.psf[v]
-        pg_mask = valid & ~local & psf
-        rt_mask = valid & ~local & ~psf
-    else:
-        pg_mask = valid & ~local
-        rt_mask = torch.zeros_like(local)
-    v = torch.where(valid, v, V)
-    page_plan, n_pages = _compact(v, _first_of(v, pg_mask))
-    obj_plan, n_objs = _compact(obj_ids, _first_of(obj_ids, rt_mask))
-    # capacity governor for the runtime plan: every fresh-page allocation
-    # must still find an unpinned victim (excess misses stay remote)
-    F = cfg.num_frames
-    vpo = s.vpage_of[:F]
-    pinned_frames = _count((vpo >= 0) & (s.pin[vpo.clamp_min(0)] > 0))
-    fill = s.fill_vpage
-    free_slots = torch.where(fill >= 0,
-                             P - take(s.alloc_count, fill.clamp_min(0)), 0)
-    cap = free_slots + P * (F - pinned_frames).clamp_min(0)
-    n_objs = torch.minimum(n_objs, cap)
-    obj_plan = torch.where(_arange(R, obj_ids) < n_objs, obj_plan, -1)
-    if all_runtime:
-        pf_plan = torch.full((Q,), -1, dtype=I32, device=dev)
-    else:
-        pf_plan = _prefetch_candidates(cfg, s, page_plan, n_pages,
-                                       use_psf=split_by_psf)
+    with trace.span("engine.plan.classify"):
+        valid = obj_ids >= 0
+        vaddr = s.obj_loc[obj_ids.clamp_min(0)]
+        v = vaddr // P
+        local = s.backing[v] == LOCAL
+        if all_runtime:
+            pg_mask = torch.zeros_like(local)
+            rt_mask = valid & ~local
+        elif split_by_psf:
+            psf = s.psf[v]
+            pg_mask = valid & ~local & psf
+            rt_mask = valid & ~local & ~psf
+        else:
+            pg_mask = valid & ~local
+            rt_mask = torch.zeros_like(local)
+        v = torch.where(valid, v, V)
+    with trace.span("engine.plan.paging"):
+        page_plan, n_pages = _compact(v, _first_of(v, pg_mask))
+        if all_runtime:
+            pf_plan = torch.full((Q,), -1, dtype=I32, device=dev)
+        else:
+            pf_plan = _prefetch_candidates(cfg, s, page_plan, n_pages,
+                                           use_psf=split_by_psf)
+    with trace.span("engine.plan.runtime"):
+        obj_plan, n_objs = _compact(obj_ids, _first_of(obj_ids, rt_mask))
+        # capacity governor for the runtime plan: every fresh-page
+        # allocation must still find an unpinned victim (excess misses
+        # stay remote)
+        F = cfg.num_frames
+        vpo = s.vpage_of[:F]
+        pinned_frames = _count((vpo >= 0) & (s.pin[vpo.clamp_min(0)] > 0))
+        fill = s.fill_vpage
+        free_slots = torch.where(
+            fill >= 0, P - take(s.alloc_count, fill.clamp_min(0)), 0)
+        cap = free_slots + P * (F - pinned_frames).clamp_min(0)
+        n_objs = torch.minimum(n_objs, cap)
+        obj_plan = torch.where(_arange(R, obj_ids) < n_objs, obj_plan, -1)
     n_miss = n_pages + n_objs
     served = valid
     zero = torch.zeros((), dtype=I32, device=dev)
@@ -281,10 +289,11 @@ def plan_access(cfg: PlaneConfig, s: st.PlaneState, obj_ids: torch.Tensor,
             served = torch.where(deg, valid & local, served)
             n_failed = torch.where(deg, 0, n_failed)
         egress_on = fc is not None and fc.egress_active
-    fetch = torch.cat([page_plan, pf_plan])
-    is_pf = torch.cat([torch.zeros((R,), dtype=torch.bool, device=dev),
-                       torch.ones((Q,), dtype=torch.bool, device=dev)])
-    fetch, victim = _plan_victims(cfg, s, v, fetch, is_pf)
+    with trace.span("engine.plan.paging"):
+        fetch = torch.cat([page_plan, pf_plan])
+        is_pf = torch.cat([torch.zeros((R,), dtype=torch.bool, device=dev),
+                           torch.ones((Q,), dtype=torch.bool, device=dev)])
+        fetch, victim = _plan_victims(cfg, s, v, fetch, is_pf)
     if egress_on:
         # a scheduled page-in whose victim's writeback would fault is
         # dropped whole (keyed by the occupant vpage)
@@ -591,11 +600,17 @@ def execute_access(cfg: PlaneConfig, s: st.PlaneState, obj_ids: torch.Tensor,
     or unserved requests.  ``mode="batch"`` and ``mode="reference"`` replay
     the same plan and agree bit for bit."""
     scalar = _resolve(cfg, mode)
-    pids = _begin(cfg, s, obj_ids, plan)
-    _exec_paging(cfg, s, plan, scalar=scalar)
-    _exec_runtime(cfg, s, plan.obj_plan, plan.n_objs, scalar=scalar)
-    _profile(cfg, s, pids, with_cat=True, with_obj_last=True, scalar=scalar)
-    return s, _gather_final(cfg, s, pids, scalar=scalar)
+    with trace.span("engine.execute.begin"):
+        pids = _begin(cfg, s, obj_ids, plan)
+    with trace.span("engine.execute.paging"):
+        _exec_paging(cfg, s, plan, scalar=scalar)
+    with trace.span("engine.execute.runtime"):
+        _exec_runtime(cfg, s, plan.obj_plan, plan.n_objs, scalar=scalar)
+    with trace.span("engine.execute.profile"):
+        _profile(cfg, s, pids, with_cat=True, with_obj_last=True,
+                 scalar=scalar)
+    with trace.span("engine.execute.gather"):
+        return s, _gather_final(cfg, s, pids, scalar=scalar)
 
 
 def access(cfg: PlaneConfig, s: st.PlaneState, obj_ids: torch.Tensor, *,

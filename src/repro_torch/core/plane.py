@@ -23,6 +23,7 @@ from ..kernels import ops as kops
 from . import batch as batch_lib
 from . import paths
 from . import state as st
+from . import trace
 from .layout import CAR_THR_MAX, CAR_THR_MIN, FREE, LOCAL, PlaneConfig
 from .paths import add, put, take
 
@@ -216,19 +217,20 @@ def execute_evacuate(cfg: PlaneConfig, s: st.PlaneState, plan: EvacPlan,
     fc = cfg.faults
     shard_i = 0 if shard is None else shard
     for i in range(plan.victims.shape[0]):
-        v = plan.victims[i]
-        allocated = take(s.alloc_count, v)
-        dead = allocated - take(s.live_count, v)
-        ratio = dead.to(torch.float32) / allocated.clamp_min(1).to(
-            torch.float32)
-        selected = (plan.ok[i] & (take(s.backing, v) == LOCAL)
-                    & (take(s.pin, v) == 0) & (allocated > 0)
-                    & (ratio > thr))
-        if fc is not None and fc.egress_active:
-            efail = fc.egress_fail(s.step, v, shard_i)
-            st.bump(s.stats, egress_failures=(selected & efail).to(I32))
-            selected = selected & ~efail
-        _evacuate_page(cfg, s, v, selected)
+        with trace.span("engine.evacuate.page"):
+            v = plan.victims[i]
+            allocated = take(s.alloc_count, v)
+            dead = allocated - take(s.live_count, v)
+            ratio = dead.to(torch.float32) / allocated.clamp_min(1).to(
+                torch.float32)
+            selected = (plan.ok[i] & (take(s.backing, v) == LOCAL)
+                        & (take(s.pin, v) == 0) & (allocated > 0)
+                        & (ratio > thr))
+            if fc is not None and fc.egress_active:
+                efail = fc.egress_fail(s.step, v, shard_i)
+                st.bump(s.stats, egress_failures=(selected & efail).to(I32))
+                selected = selected & ~efail
+            _evacuate_page(cfg, s, v, selected)
     if clear_access:
         s.access.fill_(False)
     return s
@@ -239,7 +241,8 @@ def evacuate(cfg: PlaneConfig, s: st.PlaneState,
              max_pages: int = 16, *,
              clear_access: bool = True, shard=None) -> st.PlaneState:
     """Foreground evacuation: plan + execute in one call."""
-    plan = plan_evacuate(cfg, s, garbage_threshold, max_pages)
+    with trace.span("engine.evacuate.plan"):
+        plan = plan_evacuate(cfg, s, garbage_threshold, max_pages)
     return execute_evacuate(cfg, s, plan, garbage_threshold,
                             clear_access=clear_access, shard=shard)
 

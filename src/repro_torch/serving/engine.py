@@ -46,6 +46,11 @@ is given the same global batch, serves its own row block, and ``submit``
 returns the whole batch's rows on every rank (an all_gather of the
 blocks, as JAX's host reads the global array whole); the per-shard health
 counters and the run's stats are gathered the same way when read.
+
+With a profiler recording, each tick's parts run under named spans
+(``core.trace``: ``engine.submit`` over ``engine.admit``, ``engine.plan``,
+``engine.execute``, ``engine.evacuate``, ``engine.epoch`` and
+``engine.retire`` with its ``engine.wait``), each carrying its tick.
 """
 from __future__ import annotations
 
@@ -63,6 +68,7 @@ from ..core import batch as batch_lib
 from ..core import plane as plane_lib
 from ..core import shardplane
 from ..core import state as state_lib
+from ..core import trace
 from ..core.layout import PlaneConfig
 from ..launch import mesh as mesh_lib
 
@@ -135,10 +141,6 @@ class LatencyTracker:
             self._buf[r[hit]] = lat[tail][hit]
         self.n += int(lat.size)
 
-    @property
-    def lat_us(self) -> list:
-        return self._buf[:min(self.n, self.capacity)].tolist()
-
     def percentile(self, p: float) -> float:
         k = min(self.n, self.capacity)
         return float(np.percentile(self._buf[:k], p)) if k else 0.0
@@ -192,6 +194,7 @@ class _Inflight(NamedTuple):
     ids: object = None      # np [batch] int32 slot ids (incl. retries, -1 pad)
     t0s: object = None      # np [batch] float64 per-slot arrival clocks
     att: object = None      # np [batch] int32 per-slot attempt counts
+    tick: int = 0           # the engine tick that dispatched it
 
 
 _EMPTY_IDS = np.empty((0,), np.int32)
@@ -220,6 +223,7 @@ class Engine:
                         or cfg.max_retries > 0 or cfg.breaker_threshold > 0)
         self._breaker_on = self._robust and cfg.breaker_threshold > 0
         self.reclaim = None
+        self.ticks = 0
         self._epoch_on = cfg.plane == "hybrid" and (
             cfg.epoch_every > 0 or cfg.epoch_watermark_bytes > 0)
         if cfg.shards > 1:
@@ -243,7 +247,6 @@ class Engine:
                          "deadline_misses": 0, "degraded_ticks": 0,
                          "breaker_trips": 0}
         self.latency = LatencyTracker()
-        self.ticks = 0
         self._inflight: deque[_Inflight] = deque()      # oldest-first
         # the counters start at zero after the warm-up, as in JAX
         for s in self._shards():
@@ -335,8 +338,9 @@ class Engine:
         return [s for s in self.state if s is not None]
 
     def _plan(self, ids: torch.Tensor, degraded: bool = False):
-        return batch_lib.plan_access(self.pcfg, self.state, ids,
-                                     degraded=degraded, **self._plan_kw)
+        with trace.span("engine.plan", self.ticks + 1):
+            return batch_lib.plan_access(self.pcfg, self.state, ids,
+                                         degraded=degraded, **self._plan_kw)
 
     @property
     def breaker_open(self) -> bool:
@@ -348,19 +352,20 @@ class Engine:
         ``(rows [batch, D], served [batch] or None)``, whole on every rank
         under a group."""
         cfg = self.cfg
-        ids = ids.reshape(cfg.shards, cfg.batch // cfg.shards)
-        if dmask is not None and self._access_degmask is not None:
-            out = self._access_degmask(self.state, ids, torch.from_numpy(
-                dmask).to(self.device))
-        else:
-            out = self._access(self.state, ids)
-        rows, sv = out[1], (out[2] if self._robust else None)
-        if self.group is not None:
-            rows = mesh_lib.gather_shards(rows, self.group)
-            if sv is not None:
-                sv = mesh_lib.gather_shards(sv, self.group)
-        return (rows.reshape(cfg.batch, -1),
-                None if sv is None else sv.reshape(cfg.batch))
+        with trace.span("engine.execute", self.ticks + 1):
+            ids = ids.reshape(cfg.shards, cfg.batch // cfg.shards)
+            if dmask is not None and self._access_degmask is not None:
+                out = self._access_degmask(self.state, ids, torch.from_numpy(
+                    dmask).to(self.device))
+            else:
+                out = self._access(self.state, ids)
+            rows, sv = out[1], (out[2] if self._robust else None)
+            if self.group is not None:
+                rows = mesh_lib.gather_shards(rows, self.group)
+                if sv is not None:
+                    sv = mesh_lib.gather_shards(sv, self.group)
+            return (rows.reshape(cfg.batch, -1),
+                    None if sv is None else sv.reshape(cfg.batch))
 
     # -- pipelined dispatch -------------------------------------------------
 
@@ -368,38 +373,42 @@ class Engine:
         """Enqueue one batch; returns its rows.  Blocks only when more than
         ``pipeline_depth`` batches are in flight, never on this batch."""
         t_sched = time.time() if t_sched is None else t_sched
-        # opportunistic retirement of anything already finished
-        while self._inflight and self._inflight[0].done.ready():
-            self._retire_one()
-        if self._robust:
-            rows = self._submit_robust(obj_ids, t_sched)
-        else:
-            rows = self._dispatch(obj_ids, t_sched)
-        self.ticks += 1
-        self._maintenance()
-        limit = 0 if self.cfg.dispatch == "sync" else self.cfg.pipeline_depth
-        while len(self._inflight) > limit:
-            self._retire_one()
-        return rows
+        with trace.span("engine.submit", self.ticks + 1):
+            # opportunistic retirement of anything already finished
+            while self._inflight and self._inflight[0].done.ready():
+                self._retire_one()
+            if self._robust:
+                rows = self._submit_robust(obj_ids, t_sched)
+            else:
+                rows = self._dispatch(obj_ids, t_sched)
+            self.ticks += 1
+            self._maintenance()
+            limit = (0 if self.cfg.dispatch == "sync"
+                     else self.cfg.pipeline_depth)
+            while len(self._inflight) > limit:
+                self._retire_one()
+            return rows
 
     def _ids(self, obj_ids) -> torch.Tensor:
         """The batch's ids as an int32 [batch] device tensor, short batches
         padded with the plane's negative-id no-ops (fixed shapes)."""
         B = self.cfg.batch
-        if isinstance(obj_ids, torch.Tensor):
-            ids = obj_ids.to(self.device, torch.int32).reshape(-1)
-        else:
-            host = torch.from_numpy(np.ascontiguousarray(obj_ids, np.int32))
-            if self.device.type == "cuda":
-                host = host.pin_memory()
-            ids = host.to(self.device, non_blocking=True).reshape(-1)
-        n = ids.shape[0]
-        if n > B:
-            raise ValueError(f"batch of {n} > configured batch={B}")
-        if n < B:
-            ids = torch.cat([ids, torch.full((B - n,), -1, dtype=torch.int32,
-                                             device=self.device)])
-        return ids
+        with trace.span("engine.admit", self.ticks + 1):
+            if isinstance(obj_ids, torch.Tensor):
+                ids = obj_ids.to(self.device, torch.int32).reshape(-1)
+            else:
+                host = torch.from_numpy(np.ascontiguousarray(obj_ids,
+                                                             np.int32))
+                if self.device.type == "cuda":
+                    host = host.pin_memory()
+                ids = host.to(self.device, non_blocking=True).reshape(-1)
+            n = ids.shape[0]
+            if n > B:
+                raise ValueError(f"batch of {n} > configured batch={B}")
+            if n < B:
+                ids = torch.cat([ids, torch.full(
+                    (B - n,), -1, dtype=torch.int32, device=self.device)])
+            return ids
 
     def _dispatch(self, obj_ids, t_sched):
         ids = self._ids(obj_ids)
@@ -408,10 +417,11 @@ class Engine:
             rows_full, _ = self._sharded_access(ids)
         else:
             plan = self._plan(ids)
-            _, rows_full = self._exec(self.pcfg, self.state, ids, plan,
-                                      mode=self.cfg.mode)
+            with trace.span("engine.execute", self.ticks + 1):
+                _, rows_full = self._exec(self.pcfg, self.state, ids, plan,
+                                          mode=self.cfg.mode)
         self._inflight.append(_Inflight(rows_full, _Done(self.device),
-                                        t_sched, n))
+                                        t_sched, n, tick=self.ticks + 1))
         return rows_full[:n] if n < self.cfg.batch else rows_full
 
     def _submit_robust(self, obj_ids, t_sched):
@@ -419,39 +429,43 @@ class Engine:
         the batch tail, per-slot served verdicts, circuit-breaker routing.
         ``obj_ids`` is read on the host (a device tensor is copied back)."""
         cfg = self.cfg
-        if isinstance(obj_ids, torch.Tensor):
-            obj_ids = obj_ids.cpu().numpy()
-        ids_np = np.asarray(obj_ids, np.int32).reshape(-1)
-        n = ids_np.size
-        if n > cfg.batch:
-            raise ValueError(f"batch of {n} > configured batch={cfg.batch}")
-        now = time.time()
-        shedding = cfg.deadline_us > 0 and cfg.shed_policy == "deadline"
-        shed = shedding and n > 0 and (now - t_sched) * 1e6 > cfg.deadline_us
-        if shed:
-            # the whole arrival is already past its SLO: count it out
-            self.counters["shed_requests"] += n
-            self.counters["deadline_misses"] += n
-        full = np.full((cfg.batch,), -1, np.int32)
-        t0s = np.full((cfg.batch,), now, np.float64)
-        att = np.zeros((cfg.batch,), np.int32)
-        k = 0
-        if n and not shed:
-            # new requests first: rows[:n] stay aligned with the caller's ids
-            full[:n] = ids_np
-            t0s[:n] = t_sched
-            k = n
-        while self._retryq and k < cfg.batch:
-            rid, rt0, ratt = self._retryq.popleft()
-            if shedding and (now - rt0) * 1e6 > cfg.deadline_us:
-                self.counters["shed_requests"] += 1
-                self.counters["deadline_misses"] += 1
-                continue
-            full[k] = rid
-            t0s[k] = rt0
-            att[k] = ratt
-            k += 1
         tick = self.ticks + 1
+        with trace.span("engine.admit", tick):
+            if isinstance(obj_ids, torch.Tensor):
+                obj_ids = obj_ids.cpu().numpy()
+            ids_np = np.asarray(obj_ids, np.int32).reshape(-1)
+            n = ids_np.size
+            if n > cfg.batch:
+                raise ValueError(
+                    f"batch of {n} > configured batch={cfg.batch}")
+            now = time.time()
+            shedding = cfg.deadline_us > 0 and cfg.shed_policy == "deadline"
+            shed = (shedding and n > 0
+                    and (now - t_sched) * 1e6 > cfg.deadline_us)
+            if shed:
+                # the whole arrival is already past its SLO: count it out
+                self.counters["shed_requests"] += n
+                self.counters["deadline_misses"] += n
+            full = np.full((cfg.batch,), -1, np.int32)
+            t0s = np.full((cfg.batch,), now, np.float64)
+            att = np.zeros((cfg.batch,), np.int32)
+            k = 0
+            if n and not shed:
+                # new requests first: rows[:n] stay aligned with the
+                # caller's ids
+                full[:n] = ids_np
+                t0s[:n] = t_sched
+                k = n
+            while self._retryq and k < cfg.batch:
+                rid, rt0, ratt = self._retryq.popleft()
+                if shedding and (now - rt0) * 1e6 > cfg.deadline_us:
+                    self.counters["shed_requests"] += 1
+                    self.counters["deadline_misses"] += 1
+                    continue
+                full[k] = rid
+                t0s[k] = rt0
+                att[k] = ratt
+                k += 1
         sched = cfg.faults
         if sched is not None:
             # a deterministic dispatch stall, then slow-but-alive windows:
@@ -474,12 +488,14 @@ class Engine:
             rows_full, served = self._sharded_access(ids, dmask)
         else:
             plan = self._plan(ids, degraded=bool(dmask[0]))
-            _, rows_full = self._exec(self.pcfg, self.state, ids, plan,
-                                      mode=cfg.mode)
+            with trace.span("engine.execute", tick):
+                _, rows_full = self._exec(self.pcfg, self.state, ids, plan,
+                                          mode=cfg.mode)
             served = plan.served
         served = _to_host(served)
         self._inflight.append(_Inflight(rows_full, _Done(self.device),
-                                        t_sched, n, served, full, t0s, att))
+                                        t_sched, n, served, full, t0s, att,
+                                        tick))
         if self._breaker_on:
             self._breaker_step()
         if shed:
@@ -501,11 +517,15 @@ class Engine:
                 clear = round_id > self._evac_round
                 if clear:
                     self._evac_round = round_id
-                (self._evac_slice_clear if clear else self._evac_slice)(s)
+                with trace.span("engine.evacuate", self.ticks):
+                    (self._evac_slice_clear if clear
+                     else self._evac_slice)(s)
         elif self.ticks % cfg.evac_every == 0:
-            self._evac(s)
+            with trace.span("engine.evacuate", self.ticks):
+                self._evac(s)
         if self._epoch_on and self._epoch_due():
-            self._epoch(s)
+            with trace.span("engine.epoch", self.ticks):
+                self._epoch(s)
             self._probe = None          # watermark restarts from the epoch
 
     def _per_shard(self, fn) -> torch.Tensor:
@@ -601,50 +621,52 @@ class Engine:
         """Block on a batch, with a watchdog: a wedged device call raises
         ``TimeoutError`` after ``watchdog_s`` instead of hanging."""
         wd = self.cfg.watchdog_s
-        if wd <= 0 or done.ready():
-            done.wait()
-            return
-        deadline = time.time() + wd
-        while not done.ready():
-            if time.time() >= deadline:
-                raise TimeoutError(
-                    f"serving watchdog: in-flight batch still not ready "
-                    f"after {wd:.1f}s")
-            time.sleep(5e-5)
+        with trace.span("engine.wait"):
+            if wd <= 0 or done.ready():
+                done.wait()
+                return
+            deadline = time.time() + wd
+            while not done.ready():
+                if time.time() >= deadline:
+                    raise TimeoutError(
+                        f"serving watchdog: in-flight batch still not ready "
+                        f"after {wd:.1f}s")
+                time.sleep(5e-5)
 
     def _retire_one(self):
         e = self._inflight.popleft()
-        self._wait_ready(e.done)
-        if e.served is None:
-            self.latency.record(e.t_sched, time.time(), e.n)
-            self.counters["served"] += e.n
-            return
-        cfg = self.cfg
-        sv = e.served.numpy()
-        now = time.time()
-        real = e.ids >= 0
-        ok = real & sv
-        if ok.any():
-            lat = (now - e.t0s[ok]) * 1e6
-            self.latency.record_us(lat)
-            self.counters["served"] += int(ok.sum())
-            if self.scfg is not None:
-                # serves by owner shard (healthy-shard goodput)
-                np.add.at(self.served_per_shard,
-                          e.ids[ok] // self.scfg.shard.num_objs, 1)
-            if cfg.deadline_us > 0:
-                self.counters["deadline_misses"] += int(
-                    (lat > cfg.deadline_us).sum())
-        # unserved slots: bounded retry, else shed (counted) -- a request
-        # leaves the system exactly once, as served or as shed
-        for i in np.nonzero(real & ~sv)[0]:
-            if (cfg.max_retries > 0 and e.att[i] < cfg.max_retries
-                    and len(self._retryq) < cfg.retry_queue_cap):
-                self._retryq.append(
-                    (int(e.ids[i]), float(e.t0s[i]), int(e.att[i]) + 1))
-                self.counters["fetch_retries"] += 1
-            else:
-                self.counters["shed_requests"] += 1
+        with trace.span("engine.retire", e.tick):
+            self._wait_ready(e.done)
+            if e.served is None:
+                self.latency.record(e.t_sched, time.time(), e.n)
+                self.counters["served"] += e.n
+                return
+            cfg = self.cfg
+            sv = e.served.numpy()
+            now = time.time()
+            real = e.ids >= 0
+            ok = real & sv
+            if ok.any():
+                lat = (now - e.t0s[ok]) * 1e6
+                self.latency.record_us(lat)
+                self.counters["served"] += int(ok.sum())
+                if self.scfg is not None:
+                    # serves by owner shard (healthy-shard goodput)
+                    np.add.at(self.served_per_shard,
+                              e.ids[ok] // self.scfg.shard.num_objs, 1)
+                if cfg.deadline_us > 0:
+                    self.counters["deadline_misses"] += int(
+                        (lat > cfg.deadline_us).sum())
+            # unserved slots: bounded retry, else shed (counted) -- a request
+            # leaves the system exactly once, as served or as shed
+            for i in np.nonzero(real & ~sv)[0]:
+                if (cfg.max_retries > 0 and e.att[i] < cfg.max_retries
+                        and len(self._retryq) < cfg.retry_queue_cap):
+                    self._retryq.append(
+                        (int(e.ids[i]), float(e.t0s[i]), int(e.att[i]) + 1))
+                    self.counters["fetch_retries"] += 1
+                else:
+                    self.counters["shed_requests"] += 1
 
     def drain(self):
         """Block on every in-flight batch (end of a workload)."""
