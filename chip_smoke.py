@@ -25,7 +25,11 @@ Phases (any failure exits non-zero, with no result line):
               sync engine
  5. serve     8,388,608 objects through the launcher's plane recipe and the
               pipelined engine, 256 ticks of mcd_cl at batch 1024; every
-              served row checked on the card against the data; a profile
+              served row checked on the card against the data; the engine
+              (which replays its plan and execute, evacuation round and
+              epoch from captured CUDA graphs) held bit for bit, rows and
+              state, and launch for launch against the plain plane calls
+              on a clone; a profile
               of 16 ticks (device operations per tick)
  6. no sync   50 more ticks of plan/execute/evacuate/epoch under
               torch.cuda.set_sync_debug_mode("error")
@@ -35,7 +39,8 @@ Phases (any failure exits non-zero, with no result line):
     object    the object plane (AIFM analogue), each as in 5 (same data,
               ticks and checks) under set_sync_debug_mode("error"), the
               object plane's reclaim reads alone excepted and counted;
-              launches and device operations per tick
+              launches and device operations per tick; the paging engine
+              (replayed from a graph) against plain calls, as in 5
     reclaim   the object plane at 65,536 objects until 1,000 objects are
               evicted, full LRU scan and a 4,096-object window: batch ==
               reference executor on a clone, every row and field, and the
@@ -924,6 +929,46 @@ class counted_reads:
         return False
 
 
+def check_replayed(torch, m, ops, eng, plain_s, ids_all, served, launches,
+                   tag: str):
+    """Hold a replaying engine's rows, final state and kernel launch counts
+    (``launches``, over the ticks of ``served``), bit for bit and launch
+    for launch, against the plain plane calls (the evacuation rounds and
+    epochs on the same ticks) on ``plain_s``, a clone of its state taken
+    before its first tick."""
+    cfg, pcfg = eng.cfg, eng.pcfg
+    check(eng.replay_counts["failed"] == 0
+          and eng.replay_counts["replays"] > 0,
+          f"{tag}: the engine did not replay: {eng.replay_counts}")
+    mism = torch.zeros((), dtype=torch.int64, device=ids_all.device)
+    before = ops.launch_counts()
+    for t, rows in enumerate(served, start=1):
+        ids = ids_all[t - 1]
+        if cfg.plane == "paging":
+            _, want = m.batch.paging_access(pcfg, plain_s, ids)
+        else:
+            _, want = m.plane.access(pcfg, plain_s, ids)
+            if t % cfg.evac_every == 0:
+                m.plane.evacuate(pcfg, plain_s)
+            if cfg.epoch_every and t % cfg.epoch_every == 0:
+                m.plane.advance_epoch(pcfg, plain_s)
+        mism += (rows != want).any(dim=1).sum()
+    plain = {k: n - before[k] for k, n in ops.launch_counts().items()}
+    check(int(mism) == 0, f"{tag}: {int(mism)} replayed rows differ from "
+                          f"the plain plane calls")
+    check(_states_equal(torch, m.convert, eng.state, plain_s),
+          f"{tag}: the replaying engine's state differs from the plain "
+          f"plane calls'")
+    check(launches == plain,
+          f"{tag}: the replaying engine counts kernel launches {launches}, "
+          f"the plain plane calls {plain}")
+    log(f"[{tag}] the engine's graph replays == the plain plane calls on a "
+        f"clone, {len(served)} ticks, rows and state bit for bit, kernel "
+        f"launches equal (gather_rows "
+        f"{launches['gather_rows'] / len(served):.2f} a tick) "
+        f"({eng.replay_counts})")
+
+
 def phase_baseline(torch, m, ops, plane: str, data_t, ids_all,
                    card: str) -> tuple[dict, float]:
     """The paging or object plane through the launcher's recipe and the
@@ -944,6 +989,8 @@ def phase_baseline(torch, m, ops, plane: str, data_t, ids_all,
     rec = eng.reclaim
     reads0, rounds0 = (rec.reads, rec.rounds) if rec else (0, 0)
     mism = torch.zeros((), dtype=torch.int64, device=dev)
+    plain_s = eng.state.clone() if plane == "paging" else None
+    served = []
     eng.latency = m.engine.LatencyTracker()
     tick_ms = []
     ops.reset_launch_counts()
@@ -953,6 +1000,8 @@ def phase_baseline(torch, m, ops, plane: str, data_t, ids_all,
             ts = time.time()
             rows = eng.submit(ids_all[t])
             mism += (rows != data_t[ids_all[t]]).any(dim=1).sum()
+            if plain_s is not None:
+                served.append(rows)
             tick_ms.append((time.time() - ts) * 1e3)
         eng.drain()
         torch.cuda.synchronize()
@@ -967,11 +1016,15 @@ def phase_baseline(torch, m, ops, plane: str, data_t, ids_all,
         f"host submit p50 {statistics.median(tick_ms):.2f} ms [{card}]")
     log(f"[{plane}] stats {stats}")
     log(f"[{plane}] kernel launches {launches} "
-        f"({ {k: v / SERVE_TICKS for k, v in launches.items()} } per tick)")
+        f"({ {k: v / SERVE_TICKS for k, v in launches.items()} } per tick; "
+        f"a graph replay counts the launches its captured call counted: "
+        f"{eng.replay_counts})")
     check(n_mism == 0, f"{plane}: {n_mism} served rows differ from the data")
     if plane == "paging":
         check(stats["page_ins"] > 0 and stats["obj_ins"] == 0,
               "paging: no page-in, or an object fetch")
+        check_replayed(torch, m, ops, eng, plain_s, ids_all, served,
+                       launches, plane)
     else:
         check(stats["obj_ins"] > 0 and stats["page_ins"] == 0,
               "object: no object fetch, or a page-in")
@@ -4487,6 +4540,8 @@ def main() -> int:
         OBJECTS, BATCH, SERVE_TICKS + NOSYNC_TICKS, seed=SEED)))
     ids_all = torch.from_numpy(wl).to(dev)
     mism = torch.zeros((), dtype=torch.int64, device=dev)
+    plain_s = eng.state.clone()
+    served = []
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     eng.latency = engine.LatencyTracker()
@@ -4496,6 +4551,7 @@ def main() -> int:
         ts = time.time()
         rows = eng.submit(ids_all[t])
         mism += (rows != data_t[ids_all[t]]).any(dim=1).sum()
+        served.append(rows)
         tick_ms.append((time.time() - ts) * 1e3)
     eng.drain()
     torch.cuda.synchronize()
@@ -4510,8 +4566,12 @@ def main() -> int:
         f"host submit p50 {statistics.median(tick_ms):.2f} ms [{card}]")
     log(f"[serve] stats {stats}")
     log(f"[serve] kernel launches {launches} "
-        f"({ {k: v / SERVE_TICKS for k, v in launches.items()} } per tick)")
+        f"({ {k: v / SERVE_TICKS for k, v in launches.items()} } per tick; "
+        f"a graph replay counts the launches its captured call counted: "
+        f"{eng.replay_counts})")
     check(n_mism == 0, f"{n_mism} served rows differ from the data")
+    check_replayed(torch, M, ops, eng, plain_s, ids_all, served, launches,
+                   "serve")
     for k in ("page_ins", "obj_ins", "evac_pages", "epochs"):
         check(stats[k] > 0, f"serve: {k} is 0")
     for k in ("gather_rows", "compact_pages", "cat_decay"):

@@ -15,10 +15,16 @@ The tree (a child runs inside its parent):
 - ``engine.plan``: ``engine.plan.classify``, ``engine.plan.paging``,
   ``engine.plan.runtime``
 - ``engine.execute``: ``engine.execute.begin``, ``.paging``, ``.runtime``,
-  ``.profile``, ``.gather``
+  ``.profile``, ``.gather``; or, where the engine replays the batch's plan
+  and execute from a captured CUDA graph, ``engine.execute.replay`` (the
+  graph's launch) alone
 - ``engine.evacuate``: ``engine.evacuate.plan``, ``engine.evacuate.page``
-  (one a victim)
+  (one a victim); or ``engine.evacuate.replay``
+- ``engine.epoch``: ``engine.epoch.replay`` where the epoch is replayed
 - ``engine.retire``: ``engine.wait``
+
+A replayed call runs no Python inside its graph, so the spans of its
+parts appear only on the calls that run eagerly or are captured.
 """
 from __future__ import annotations
 

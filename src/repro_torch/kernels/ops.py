@@ -54,6 +54,18 @@ def reset_launch_counts() -> None:
     _gather_mod.launches_into = 0
 
 
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (keyed as in ``launch_counts``) to the launch counts:
+    the launches of a replayed CUDA graph, which calls no wrapper."""
+    for k, n in counts.items():
+        if k == "paged_attention_mma":
+            _paged_attn_mod.launches_mma += n
+        elif k == "gather_rows_into":
+            _gather_mod.launches_into += n
+        else:
+            _KERNEL_MODULES[k].launches += n
+
+
 def gather_rows(pool, idx, *, impl="auto", masked=True):
     """pool [N, D], idx [R] int32 -> [R, D].  With ``masked`` negative
     indices yield zero rows; ``masked=False`` lets the plain version skip

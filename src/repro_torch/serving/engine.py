@@ -51,6 +51,15 @@ With a profiler recording, each tick's parts run under named spans
 (``core.trace``: ``engine.submit`` over ``engine.admit``, ``engine.plan``,
 ``engine.execute``, ``engine.evacuate``, ``engine.epoch`` and
 ``engine.retire`` with its ``engine.wait``), each carrying its tick.
+
+On a card, an engine over one plane state (the hybrid or paging plane,
+the batch executor, no robust serving) replays its three device calls
+from captured CUDA graphs (``replays``): the batch's plan and execute,
+the evacuation round (or its slices) and the epoch, one graph launch
+each in place of hundreds of eager launches.  Each runs eagerly the
+first time it comes due, is captured the next time and replayed from
+then on (``_Replay``); the rows are copied out of the graph's output.
+Every other engine, and every engine on the CPU, dispatches eagerly.
 """
 from __future__ import annotations
 
@@ -70,6 +79,7 @@ from ..core import shardplane
 from ..core import state as state_lib
 from ..core import trace
 from ..core.layout import PlaneConfig
+from ..kernels import ops
 from ..launch import mesh as mesh_lib
 
 
@@ -199,6 +209,181 @@ class _Inflight(NamedTuple):
 
 _EMPTY_IDS = np.empty((0,), np.int32)
 
+_STATE_FIELDS = tuple(k for k in state_lib.PlaneState._fields
+                      if k != "stats")
+_STATS_FIELDS = state_lib.PlaneStats._fields
+
+
+def robust(cfg: EngineConfig) -> bool:
+    """Whether an engine serves robustly: a fault schedule, a deadline,
+    retries or a circuit breaker."""
+    return (cfg.faults is not None or cfg.deadline_us > 0
+            or cfg.max_retries > 0 or cfg.breaker_threshold > 0)
+
+
+def replays(cfg: EngineConfig, pcfg: PlaneConfig, device, group=None
+            ) -> bool:
+    """Whether an engine replays its device calls from captured CUDA
+    graphs: on a card, over one plane state with no process group, on the
+    hybrid or paging plane, with the batch executor and without robust
+    serving.  The object plane's reclaim reads the host, robust serving
+    acts on the host inside a tick, sharded engines exchange between
+    shards, and the reference executor is the oracle: those, and every
+    engine on the CPU, dispatch eagerly."""
+    return (torch.device(device).type == "cuda" and cfg.shards == 1
+            and group is None and cfg.plane in ("hybrid", "paging")
+            and cfg.mode == "batch" and not robust(cfg)
+            and pcfg.faults is None)
+
+
+def _tensors(s) -> list:
+    """The tensors of plane state ``s``: its fields, then its counters."""
+    return ([getattr(s, k) for k in _STATE_FIELDS]
+            + [getattr(s.stats, k) for k in _STATS_FIELDS])
+
+
+def _bind(s, stats, tensors: list) -> None:
+    """Bind ``tensors`` (in ``_tensors``' order) to ``s``'s fields and to
+    the counters ``stats``, which ``s`` then holds."""
+    s.stats = stats
+    n = len(_STATE_FIELDS)
+    for k, t in zip(_STATE_FIELDS, tensors[:n]):
+        setattr(s, k, t)
+    for k, t in zip(_STATS_FIELDS, tensors[n:]):
+        setattr(stats, k, t)
+
+
+def _rebound(s, held: list) -> list:
+    """``(held tensor, bound tensor)`` for each field of ``s`` rebound since
+    ``held`` (its ``_tensors``) was taken.  Raises ``ValueError`` where one
+    differs from its held tensor in shape, dtype or device."""
+    moved = [(h, t) for h, t in zip(held, _tensors(s)) if h is not t]
+    for h, t in moved:
+        if (t.shape, t.dtype, t.device) != (h.shape, h.dtype, h.device):
+            raise ValueError(f"a field of shape {tuple(h.shape)} {h.dtype} "
+                             f"was rebound to {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
+    return moved
+
+
+def _copy(pairs: list) -> None:
+    """``dst.copy_(src)`` for each ``(dst, src)``: one foreach copy a
+    dtype."""
+    by_dtype = {}
+    for d, t in pairs:
+        a, b = by_dtype.setdefault(d.dtype, ([], []))
+        a.append(d)
+        b.append(t)
+    for a, b in by_dtype.values():
+        torch._foreach_copy_(a, b)
+
+
+def in_place(fn, s, *args):
+    """``fn(s, *args)`` with every field of ``s`` that it rebinds, rather
+    than writes in place (a 0-d field, a counter), written back into the
+    tensor it held before and bound to it again, so that ``s`` keeps its
+    tensors: a graph captured over the call reads and writes the same
+    tensors on every replay.  Raises ``ValueError``, with the old tensors
+    bound back, where a field was rebound to a tensor of another shape,
+    dtype or device, or to storage that another field holds: the write-back
+    would then change what the call means."""
+    stats, held = s.stats, _tensors(s)
+    try:
+        out = fn(s, *args)
+        moved = _rebound(s, held)
+        ptrs = [t.untyped_storage().data_ptr()
+                for t in held + [t for _, t in moved]]
+        if len(set(ptrs)) < len(ptrs):
+            raise ValueError("a field was rebound to storage that another "
+                             "field holds")
+        _copy(moved)
+    finally:
+        _bind(s, stats, held)
+    return out
+
+
+def adopt(s, held: list) -> None:
+    """Bind ``s``'s fields back to ``held`` (its tensors when a graph was
+    captured), copying in the value of each field rebound since (by a
+    caller outside the engine, or an eager call).  Raises ``ValueError``,
+    binding nothing, where a rebound field's shape, dtype or device differ
+    from its held tensor's."""
+    moved = _rebound(s, held)
+    if moved:
+        _copy(moved)
+        _bind(s, s.stats, held)
+
+
+class _Replay:
+    """One of the engine's device calls, ``fn(state, *inputs)``, replayed
+    from a captured CUDA graph.
+
+    The first call runs eagerly; the next is captured (``in_place`` over
+    the call, with a private memory pool) and, since capture runs nothing
+    on the card, replayed at once; every later call replays.  A replay
+    reads the state's tensors and the ``inputs`` as captured (the caller
+    fills them in place) and returns the graph's own output, which the
+    next replay overwrites.  A field rebound between calls is adopted
+    (``adopt``); a state replaced whole is captured anew.  A capture that
+    raises leaves the call eager for the engine's life, counted under
+    ``failed``.  ``counts`` (the engine's ``replay_counts``) tallies
+    captures, replays and eager calls.  The kernel launch counts
+    (``ops.launch_counts``) take each replay's launches, those the
+    captured call counted, and nothing for the capture."""
+
+    def __init__(self, fn, span: str, counts: dict):
+        self.fn, self.span, self.counts = fn, span, counts
+        self.graph = self.state = self.held = self.out = None
+        self.launches = {}          # kernel launches of one replay
+        self.ran = False            # the eager first call was made
+        self.eager = False          # a capture failed: eager for good
+
+    def __call__(self, s, *inputs):
+        if self.graph is not None:
+            if s is self.state:
+                adopt(s, self.held)
+            else:
+                self.graph = None   # a state replaced whole: capture anew
+        if self.graph is None and (self.eager or not self.ran
+                                   or not self._capture(s, inputs)):
+            self.ran = True
+            self.counts["eager"] += 1
+            return self.fn(s, *inputs)
+        with trace.span(self.span):
+            self.graph.replay()
+        ops.add_launches(self.launches)
+        self.counts["replays"] += 1
+        return self.out
+
+    def _capture(self, s, inputs) -> bool:
+        """Capture the call on ``s`` on a side stream; False where the
+        capture raised (nothing ran and ``s`` holds its tensors)."""
+        graph = torch.cuda.CUDAGraph()
+        before = ops.launch_counts()
+        try:
+            with torch.cuda.device(s.device), torch.cuda.stream(
+                    torch.cuda.Stream(s.device)):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    out = in_place(self.fn, s, *inputs)
+                finally:
+                    graph.capture_end()
+        except (RuntimeError, ValueError):
+            self.eager = True
+            self.counts["failed"] += 1
+            return False
+        finally:
+            # the wrappers counted the captured launches, which ran nothing
+            launched = {k: n - before[k]
+                        for k, n in ops.launch_counts().items()
+                        if n != before[k]}
+            ops.add_launches({k: -n for k, n in launched.items()})
+        self.graph, self.state, self.out = graph, s, out
+        self.held = _tensors(s)
+        self.launches = launched
+        self.counts["captures"] += 1
+        return True
+
 
 class Engine:
     """Continuous-batching serving engine (one device, or one rank of a
@@ -219,11 +404,13 @@ class Engine:
         self.pcfg = pcfg
         self.scfg = None
         self.group = group
-        self._robust = (cfg.faults is not None or cfg.deadline_us > 0
-                        or cfg.max_retries > 0 or cfg.breaker_threshold > 0)
+        self._robust = robust(cfg)
         self._breaker_on = self._robust and cfg.breaker_threshold > 0
         self.reclaim = None
         self.ticks = 0
+        self.replay_counts = dict.fromkeys(
+            ("captures", "replays", "eager", "failed"), 0)
+        self._access_replay = None
         self._epoch_on = cfg.plane == "hybrid" and (
             cfg.epoch_every > 0 or cfg.epoch_watermark_bytes > 0)
         if cfg.shards > 1:
@@ -330,6 +517,18 @@ class Engine:
             self._evac(self.state)
         if self._breaker_on:
             self._plan(warm, degraded=True)
+        if replays(cfg, pcfg, self.device, self.group):
+            n = self.replay_counts
+            self._ids_in = torch.empty((cfg.batch,), dtype=torch.int32,
+                                       device=self.device)
+            self._access_replay = _Replay(self._plan_exec,
+                                          "engine.execute.replay", n)
+            if cfg.plane == "hybrid":
+                self._evac, self._evac_slice, self._evac_slice_clear = (
+                    _Replay(f, "engine.evacuate.replay", n) for f in (
+                        self._evac, self._evac_slice,
+                        self._evac_slice_clear))
+                self._epoch = _Replay(self._epoch, "engine.epoch.replay", n)
 
     def _shards(self) -> list:
         """The plane states this process holds."""
@@ -415,6 +614,13 @@ class Engine:
         n = len(obj_ids)
         if self.scfg is not None:
             rows_full, _ = self._sharded_access(ids)
+        elif self._access_replay is not None:
+            # the graph reads its ids from one buffer and writes its rows to
+            # one output, which the next replay overwrites: copy them out
+            self._ids_in.copy_(ids)
+            with trace.span("engine.execute", self.ticks + 1):
+                rows_full = self._access_replay(self.state,
+                                                self._ids_in).clone()
         else:
             plan = self._plan(ids)
             with trace.span("engine.execute", self.ticks + 1):
@@ -423,6 +629,12 @@ class Engine:
         self._inflight.append(_Inflight(rows_full, _Done(self.device),
                                         t_sched, n, tick=self.ticks + 1))
         return rows_full[:n] if n < self.cfg.batch else rows_full
+
+    def _plan_exec(self, s, ids: torch.Tensor) -> torch.Tensor:
+        """The batch's plan and execute on ``s``: its rows (the call the
+        engine's access graph captures)."""
+        plan = batch_lib.plan_access(self.pcfg, s, ids, **self._plan_kw)
+        return self._exec(self.pcfg, s, ids, plan, mode=self.cfg.mode)[1]
 
     def _submit_robust(self, obj_ids, t_sched):
         """Chaos-mode dispatch: deadline shed at admission, retry slots in
