@@ -64,18 +64,26 @@ def forbidden_modules() -> list:
                   & set(FORBIDDEN))
 
 
-def record(run, tr, peaks: dict) -> dict:
-    """What the per-layer readers read."""
-    seg = None
-    if run.segment is not None:
-        seg = {"ticks": run.segment["ticks"], "stats": run.segment["stats"],
-               "keys": run.segment["keys"], "trace": tr,
-               "before": run.segment["before"]}
-    return {"ticks": run.ticks, "queue_s": run.queue_s,
-            "window_stats": run.window_stats, "segment": seg,
-            "row_bytes": run.pcfg.row_bytes,
-            "page_bytes": run.pcfg.page_bytes,
-            "hbm_bytes_per_s": peaks.get("hbm_bytes_per_s")}
+RUNNERS = {"kv_store": "store", "lm_decode": "decode"}
+
+
+def runner(cfg: dict):
+    """The runner module of a configuration's ``system``: ``bench/store.py``
+    for ``kv_store``, ``bench/decode.py`` for ``lm_decode``.  Each gives a
+    ``Run`` and the ``record`` its readers read."""
+    system = cfg.get("system")
+    if system not in RUNNERS:
+        raise ValueError(f"unknown system {system!r} (known: "
+                         f"{', '.join(sorted(RUNNERS))})")
+    return importlib.import_module(f"bench.{RUNNERS[system]}")
+
+
+def cell_files(spec: dict, name: str) -> tuple:
+    """The cell ``name``, its configuration and its traffic mix."""
+    cell = next(w for w in spec["workloads"] if w["name"] == name)
+    cfg = load_json(BENCH / "configs" / f"{cell['config']}.json")
+    mix = load_json(BENCH / "traffic" / f"{cell['traffic']}.json")
+    return cell, cfg, mix
 
 
 def measure(spec: dict, name: str, seed: int, seconds: float, trace: bool,
@@ -84,44 +92,25 @@ def measure(spec: dict, name: str, seed: int, seconds: float, trace: bool,
     result line's keys (``checks`` last).  Returns ``(result, run)``."""
     import torch
 
-    from bench import store
     from bench import trace as trace_lib
     from repro_torch.kernels import _build
 
-    cell = next(w for w in spec["workloads"] if w["name"] == name)
-    cfg = load_json(BENCH / "configs" / f"{cell['config']}.json")
-    mix = load_json(BENCH / "traffic" / f"{cell['traffic']}.json")
+    cell, cfg, mix = cell_files(spec, name)
+    mod = runner(cfg)
     dev = torch.device(device)
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     peaks = load_json(BENCH / "peaks.json").get(kind, {})
-    run = store.Run(cfg, mix, seed, seconds, trace, dev, log=log)
+    run = mod.Run(cfg, mix, seed, seconds, trace, dev, log=log)
     run.setup()
     setup_s = time.time() - t0
-    log(f"[bench] {name} seed {seed}: {cfg['objects']} objects, "
-        f"{run.fill_calls} fill calls, {cfg['warm_ticks']} + "
-        f"{run.warm_extra} warm ticks; kernel build "
-        f"{_build.build_seconds:.1f} s; set-up {setup_s:.3f} s on {kind}")
-    log(f"[bench] traffic digest: {run.digest_head} (the first "
-        f"{store.tr.HEAD_KEYS} of {run.keys.shape[0]} keys)")
+    run.log_setup(name, setup_s, _build.build_seconds, kind)
     run.window()
-    log(f"[bench] local tier occupancy at the window's start: "
-        f"{run.occupancy_at_start}")
-    log(f"[bench] window {run.window_s:.3f} s, {len(run.served)} submits, "
-        f"plane counters {run.window_stats}")
-    log(f"[bench] host events in the window: {run.host.window}")
-    for slow in run.host.slow_submits:
-        log(f"[bench] slow submit: {slow}")
-    if len(run.ticks) >= 4:
-        t = sorted(s for s, _ in run.ticks)
-        q = [t[int(f * (len(t) - 1))] * 1e3 for f in (0.25, 0.5, 0.75, 0.99)]
-        log(f"[bench] host ms a submit: quartiles {q[0]:.2f} {q[1]:.2f} "
-            f"{q[2]:.2f}, p99 {q[3]:.2f}, max {t[-1] * 1e3:.2f} "
-            f"({len(t)} submits before any traced segment)")
+    run.log_window()
     tr = None
     if run.segment is not None:
         tr = trace_lib.read(run.segment.pop("prof"))
     checks = run.check()
-    rec = record(run, tr, peaks)
+    rec = mod.record(run, tr, peaks)
 
     metrics = {}
     if trace:
@@ -141,7 +130,7 @@ def measure(spec: dict, name: str, seed: int, seconds: float, trace: bool,
                "kind": kind, "count": int(cell["chips"]),
                "memory_peak_bytes": int(run.memory_peak)}
     result = {"correct": run.correct, "attempted": int(run.attempted),
-              "failed": int(checks["rows_wrong"][0] + checks["missing"][0]),
+              "failed": int(run.failed),
               "metrics": metrics, "device": device_}
     if tr is not None:
         device_["busy_s"] = tr["busy_s"]
@@ -149,8 +138,7 @@ def measure(spec: dict, name: str, seed: int, seconds: float, trace: bool,
         result["breakdown"] = trace_lib.breakdown(tr)
         for sec, label in trace_lib.longest_gaps(tr):
             log(f"[bench] idle gap {sec * 1e6:.1f} us: {label}")
-    log(f"[bench] {run.rows_judged} rows judged against the reference; "
-        f"correct: {run.correct}")
+    run.log_checked()
     result["checks"] = {k: {"value": v, "limit": lim}
                         for k, (v, lim) in checks.items()}
     return result, run
@@ -170,6 +158,12 @@ def main(argv=None) -> int:
         err(f"[bench] no cell {args.workload!r} in BENCHMARK.json")
         return 2
     chips = int(cells[args.workload]["chips"])
+    _, cfg, _ = cell_files(spec, args.workload)
+    if cfg.get("system") not in RUNNERS:
+        err(f"[bench] {args.workload}: unknown system "
+            f"{cfg.get('system')!r} (known: {', '.join(sorted(RUNNERS))}): "
+            f"no result")
+        return 5
 
     import torch
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0

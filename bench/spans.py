@@ -44,17 +44,6 @@ def ms_per_tick(rec: dict, name: str) -> float | None:
     return None if t is None else t * 1e-3 / ticks
 
 
-def ms_per_round(rec: dict, name: str) -> float | None:
-    """The ``name`` spans' union over the segment's evacuation rounds (its
-    ``engine.evacuate`` intervals), ms a round."""
-    tr, _ = _trace(rec)
-    if not tr:
-        return None
-    rounds = len(intervals(tr, "engine.evacuate"))
-    t = total_us(tr, name)
-    return None if t is None or not rounds else t * 1e-3 / rounds
-
-
 def _first_idle(gaps: list, a: float) -> float | None:
     """The first moment at or after ``a`` that falls in one of the
     reduction's idle gaps (sorted ``(start, end)`` pairs, us); None where

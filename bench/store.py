@@ -21,8 +21,6 @@ from __future__ import annotations
 
 import gc
 import math
-import os
-import resource
 import time
 from collections import deque
 
@@ -32,7 +30,7 @@ from repro_torch.core import plane as plane_lib
 from repro_torch.core.layout import PlaneConfig
 from repro_torch.serving.engine import Engine, EngineConfig
 
-from . import reference
+from . import host, reference
 from . import trace as trace_lib
 from . import traffic as tr
 
@@ -406,6 +404,43 @@ class Run:
     def correct(self) -> bool:
         return all(v <= lim for v, lim in self.checks.values())
 
+    @property
+    def failed(self) -> int:
+        return int(self.checks["rows_wrong"][0] + self.checks["missing"][0])
+
+    # -- what the run logs ----------------------------------------------------
+
+    def log_setup(self, name: str, setup_s: float, build_s: float,
+                  kind: str) -> None:
+        log, cfg = self.log, self.cfg
+        log(f"[bench] {name} seed {self.seed}: {cfg['objects']} objects, "
+            f"{self.fill_calls} fill calls, {cfg['warm_ticks']} + "
+            f"{self.warm_extra} warm ticks; kernel build "
+            f"{build_s:.1f} s; set-up {setup_s:.3f} s on {kind}")
+        log(f"[bench] traffic digest: {self.digest_head} (the first "
+            f"{tr.HEAD_KEYS} of {self.keys.shape[0]} keys)")
+
+    def log_window(self) -> None:
+        log = self.log
+        log(f"[bench] local tier occupancy at the window's start: "
+            f"{self.occupancy_at_start}")
+        log(f"[bench] window {self.window_s:.3f} s, {len(self.served)} "
+            f"submits, plane counters {self.window_stats}")
+        log(f"[bench] host events in the window: {self.host.window}")
+        for slow in self.host.slow_submits:
+            log(f"[bench] slow submit: {slow}")
+        if len(self.ticks) >= 4:
+            t = sorted(s for s, _ in self.ticks)
+            q = [t[int(f * (len(t) - 1))] * 1e3
+                 for f in (0.25, 0.5, 0.75, 0.99)]
+            log(f"[bench] host ms a submit: quartiles {q[0]:.2f} {q[1]:.2f} "
+                f"{q[2]:.2f}, p99 {q[3]:.2f}, max {t[-1] * 1e3:.2f} "
+                f"({len(t)} submits before any traced segment)")
+
+    def log_checked(self) -> None:
+        self.log(f"[bench] {self.rows_judged} rows judged against the "
+                 f"reference; correct: {self.correct}")
+
     def end_to_end(self) -> dict:
         """The end-to-end readings of this run (host clock)."""
         out = {}
@@ -416,6 +451,20 @@ class Run:
             if lat.size:
                 out["p99_ms"] = float(np.percentile(lat, 99)) * 1e3
         return out
+
+
+def record(run: Run, tr, peaks: dict) -> dict:
+    """What the per-layer readers of a store cell read."""
+    seg = None
+    if run.segment is not None:
+        seg = {"ticks": run.segment["ticks"], "stats": run.segment["stats"],
+               "keys": run.segment["keys"], "trace": tr,
+               "before": run.segment["before"]}
+    return {"ticks": run.ticks, "queue_s": run.queue_s,
+            "window_stats": run.window_stats, "segment": seg,
+            "row_bytes": run.pcfg.row_bytes,
+            "page_bytes": run.pcfg.page_bytes,
+            "hbm_bytes_per_s": peaks.get("hbm_bytes_per_s")}
 
 
 class _HostEvents:
@@ -459,12 +508,7 @@ class _HostEvents:
             st = torch.cuda.memory_stats(self.device)
             segs = int(st.get("segment.all.allocated", 0))
             retries = int(st.get("num_alloc_retries", 0))
-        try:
-            with open("/proc/stat") as f:
-                steal = int(f.readline().split()[8]) / os.sysconf("SC_CLK_TCK")
-        except (OSError, IndexError, ValueError):
-            steal = float("nan")
-        return segs, retries, steal
+        return segs, retries, host.steal_s()
 
     def _alloc_since(self, a: tuple) -> dict:
         now = self._alloc()
@@ -473,9 +517,9 @@ class _HostEvents:
                 "steal_s": round(now[2] - a[2], 3)}
 
     def mark(self) -> tuple:
-        ru = resource.getrusage(resource.RUSAGE_SELF)
-        return (time.process_time(), self.wait_s, ru.ru_minflt,
-                ru.ru_majflt, self.gc_n, self.gc_s)
+        u = host.usage()
+        return (u["cpu_s"], self.wait_s, u["minor_faults"],
+                u["major_faults"], self.gc_n, self.gc_s)
 
     def _since(self, m: tuple) -> dict:
         now = self.mark()

@@ -1,4 +1,4 @@
-"""The readers of the program's spans (``bench/spans.py`` and its six
+"""The readers of the program's spans (``bench/spans.py`` and its two
 metrics) on synthetic traces, and on a traced CPU run of each cell."""
 import time
 
@@ -9,10 +9,6 @@ from bench import spans
 
 SPEC = bench_run.load_json(bench_run.ROOT / "BENCHMARK.json")
 SPAN_METRICS = ("engine.wait_ms_per_tick.closed",
-                "plan.host_ms_per_tick.closed",
-                "execute.object_path_ms_per_tick.closed",
-                "execute.paging_path_ms_per_tick.closed",
-                "evac.plan_ms_per_round.closed",
                 "evac.device_ms_per_round.closed")
 HOST_SPAN_METRICS = SPAN_METRICS[:-1]
 SEED = 2**31 + 77
@@ -35,18 +31,25 @@ def test_every_span_metric_is_in_the_benchmark():
         m = names[n]
         assert m["moves"] == "requests_per_s" and m["unit"] == "ms"
         assert m["workloads"] == ["mcd-cl.closed"]
+    # the readers of spans that run only while a tick is captured are gone
+    for n in ("plan.host_ms_per_tick.closed",
+              "execute.object_path_ms_per_tick.closed",
+              "execute.paging_path_ms_per_tick.closed",
+              "evac.plan_ms_per_round.closed"):
+        assert n not in names
+        assert not (bench_run.BENCH / "metrics" / f"{n}.py").exists()
 
 
 def test_nested_duplicates_count_once():
-    """The harness's ``engine.plan`` around the program's: one interval."""
-    rec = _rec([("engine.plan", 100.0, 1000.0),      # the harness's
-                ("engine.plan", 110.0, 980.0),       # the program's
-                ("engine.plan", 3000.0, 600.0),
-                ("engine.plan", 3000.0, 600.0),
-                ("engine.wait", 5000.0, 40.0)])
-    assert spans.total_us(rec["segment"]["trace"], "engine.plan") == 1600.0
-    assert _read("plan.host_ms_per_tick.closed", rec) == pytest.approx(0.4)
-    assert _read("engine.wait_ms_per_tick.closed", rec) == pytest.approx(0.01)
+    """An ``engine.wait`` nested in one of its own name (a wrapper around
+    the program's span): one interval."""
+    rec = _rec([("engine.wait", 100.0, 1000.0),      # the wrapper's
+                ("engine.wait", 110.0, 980.0),       # the program's
+                ("engine.wait", 3000.0, 600.0),
+                ("engine.wait", 3000.0, 600.0),
+                ("engine.plan", 5000.0, 40.0)])
+    assert spans.total_us(rec["segment"]["trace"], "engine.wait") == 1600.0
+    assert _read("engine.wait_ms_per_tick.closed", rec) == pytest.approx(0.4)
 
 
 def test_overlapping_intervals_join():
@@ -58,20 +61,16 @@ def test_overlapping_intervals_join():
 
 
 def test_phase_readers_read_their_span():
+    """The wait reader reads its own span alone, over the segment's ticks,
+    whatever other phases the trace holds."""
     rec = _rec([("engine.execute", 0.0, 900.0),
                 ("engine.execute.runtime", 100.0, 400.0),
-                ("engine.execute.paging", 20.0, 60.0),
+                ("engine.retire", 1000.0, 700.0),
+                ("engine.wait", 1010.0, 300.0),
                 ("engine.evacuate", 2000.0, 8000.0),
-                ("engine.evacuate", 2000.0, 8000.0),   # wrapper + program
-                ("engine.evacuate.plan", 2010.0, 300.0),
-                ("engine.evacuate", 20000.0, 6000.0),
-                ("engine.evacuate.plan", 20010.0, 500.0)])
-    assert _read("execute.object_path_ms_per_tick.closed",
-                 rec) == pytest.approx(0.1)
-    assert _read("execute.paging_path_ms_per_tick.closed",
-                 rec) == pytest.approx(0.015)
-    # two rounds (the duplicate joins its twin), 800 us of plan
-    assert _read("evac.plan_ms_per_round.closed", rec) == pytest.approx(0.4)
+                ("engine.retire", 20000.0, 900.0),
+                ("engine.wait", 20010.0, 500.0)])
+    assert _read("engine.wait_ms_per_tick.closed", rec) == pytest.approx(0.2)
 
 
 def test_evacuation_device_time_counts_from_the_first_idle_moment():
@@ -142,8 +141,8 @@ def small(monkeypatch):
 
 
 def test_traced_cpu_run_reads_the_host_spans(small):
-    """A traced run of ``mcd-cl.closed`` on the CPU: the five host-span
-    readings, positive; the device reading needs a card's trace."""
+    """A traced run of ``mcd-cl.closed`` on the CPU: the host-span
+    reading, positive; the device reading needs a card's trace."""
     result, run = bench_run.measure(SPEC, "mcd-cl.closed", SEED, 2.5, True,
                                     "cpu", time.time(), log=lambda *a: None)
     assert result["correct"], result["checks"]

@@ -49,7 +49,7 @@ def profiled(device: torch.device):
         prof.stop()
 
 
-def _wrap(fn, label):
+def wrap(fn, label):
     @functools.wraps(fn)
     def inner(*a, **kw):
         with span(label):
@@ -65,7 +65,7 @@ def spans(eng):
         fn = getattr(eng, attr, None)
         if callable(fn):
             saved[attr] = attr in vars(eng)
-            setattr(eng, attr, _wrap(fn, label))
+            setattr(eng, attr, wrap(fn, label))
     try:
         yield
     finally:
