@@ -1,27 +1,51 @@
-"""The model-decode cell: set-up, the measured window, and the check of
-what the window decoded.
+"""The model-decode runner: set-up, the measured window, and the check of
+what the window decoded, for any decode configuration.  What belongs to
+one model family and KV-plane mode is its kit's.
 
-The model is the configuration file's ``model`` block, taken as the
-port's ``ArchConfig`` fields by name; the traffic's ``capacity_tokens``
-makes a ``decode_long`` shape, so ``models.api.kv_plan`` puts each layer's
-KV cache on the sparse plane (its page size, top-K, local frames and
-fetch budget must be the ones the configuration's ``plane`` block
-states).  Set-up makes the weights and each layer's context from the seed
-on the device (``bench/lm_inputs.py``), writes the context into the
-planes' far tier with its page summaries, as a prefill would leave it,
-and runs ``warm_steps`` greedy steps through ``models.api.decode_step``
-(the first, the start, recorded for the check).  The window is a closed
-loop of greedy steps: each step's token is the argmax of the step before,
-taken on the card, and the host never waits for the device inside it.
-Once ``seconds`` have passed, ``CHECKED`` more steps are made with their
-selections, attended rows and logits recorded; the window closes when the
-card has finished them.  After it, the program's state is freed and
-``bench/lm_reference.py`` judges the recorded steps.
+The configuration names its kit (``kit``; without the key, ``lm_dense``):
+the module ``bench/<kit>.py``, found by file name, so a configuration of
+another family, batch or plane mode arrives as new files.  The model is
+the configuration's ``model`` block, taken as the port's ``ArchConfig``
+fields by name; the traffic's ``batch``, ``capacity_tokens`` and
+``shape_kind`` (``decode_long``, the default, or ``decode``) make the
+shape, and ``models.api.kv_plan`` picks the plane.  Set-up takes the kit's
+seeded weights (checked against ``api.param_shapes``), makes the program's
+state (``api.init_decode_state``), has the kit write each sequence's
+context into it, and runs ``warm_steps`` greedy steps through
+``models.api.decode_step`` (the first, the start, recorded for the check).
+The window is a closed loop of greedy steps: each step's tokens
+``[batch]`` are the argmax of the step before, taken on the card, and the
+host never waits for the device inside it.  Once ``seconds`` have passed,
+``CHECKED`` more steps are made with every row's logits and what the
+kit's recorder takes; the window closes when the card has finished them.
+After it, the kit keeps what its check reads of the program's state, the
+state is freed, and the kit judges the recorded steps.
 
 With ``trace`` a segment of ``SEGMENT_STEPS`` steps, begun after
 ``SEGMENT_AT`` of the window, runs under ``torch.profiler`` with spans
-around the step's parts; host-clock readings come only from the steps
+around the kit's step parts; host-clock readings come only from the steps
 before it.
+
+A kit module gives:
+
+* ``FAMILIES`` and ``MODES``: the model families and plane modes it takes;
+* ``LIMITS``: each number its check compares, with its limit;
+* ``STEP_PARTS``: ``(module, attribute, span)`` for the traced segment;
+* ``SMOKE``: its CPU size (``at_smoke_size``);
+* ``Kit(run)``, whose methods the runner calls in this order:
+  ``params()`` the weights in the program's tree; ``fill(state)`` the
+  context written into the planes, returning the position of the first
+  fed token; ``first_tokens()`` ``[batch]``; ``after_warm(state)`` a dict
+  of what the planes hold after warm-up; ``describe()`` the set-up line's
+  words on the context and the planes, that dict among them;
+  ``recording(rec)`` a context in which a checked step's records go into
+  ``rec``; ``keep(state, last)`` what the check
+  reads of the state, before it is freed; ``judge(steps, kept, fed)``
+  the readings (``program``, ``per_step`` and, with ``run.control``,
+  ``control``); ``counts()`` ``flops_per_step``, ``bytes_per_step`` and
+  whatever else its readers read; ``describe_checked()`` the check's line;
+* optionally ``CONTROL`` (its judge reads the control too) and ``FAULTS``
+  (``name: (module, attribute, wrap)``), which ``bench.lm_control`` runs.
 """
 from __future__ import annotations
 
@@ -29,21 +53,24 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import importlib
 import math
 import time
+from pathlib import Path
 
 import torch
 from repro_torch import configs
-from repro_torch.core import kvplane
 from repro_torch.models import api
-from repro_torch.models import mlp as mlp_lib
 
-from . import host, lm_counts, lm_inputs, lm_reference
+from . import host
 from . import trace as trace_lib
 
 SEGMENT_STEPS = 4
 SEGMENT_AT = 0.6
 CHECKED = 2                 # the window's last steps, judged after it
+DEFAULT_KIT = "lm_dense"
+SHAPE_KINDS = ("decode_long", "decode")
+BENCH = Path(__file__).resolve().parent
 
 clock = time.perf_counter
 
@@ -57,6 +84,31 @@ def arch_config(model: dict) -> configs.ArchConfig:
     if "dtype" in kw:
         kw["dtype"] = getattr(torch, kw["dtype"])
     return configs.ArchConfig(**kw)
+
+
+def kit_of(cfg: dict):
+    """The kit module a configuration names: ``bench/<kit>.py``."""
+    name = cfg.get("kit", DEFAULT_KIT)
+    if not (isinstance(name, str) and name.isidentifier()
+            and (BENCH / f"{name}.py").is_file()):
+        raise ValueError(f"configuration {cfg.get('name')!r} names the kit "
+                         f"{name!r}: there is no bench/{name}.py")
+    return importlib.import_module(f"bench.{name}")
+
+
+def at_smoke_size(cfg: dict, mix: dict) -> tuple:
+    """The configuration and traffic at their kit's CPU size, and what to
+    set there: ``(cfg, mix, patches)``, each patch ``(object, attribute,
+    value)``: the program's constants and the kit's ``LIMITS``.  The kit's
+    ``SMOKE`` gives ``config`` (top-level blocks, a dict merged into the
+    block), ``traffic`` (keys set), ``program`` (patches) and ``limits``."""
+    kit = kit_of(cfg)
+    s = kit.SMOKE
+    cfg = dict(cfg)
+    for k, v in s["config"].items():
+        cfg[k] = dict(cfg.get(k, {}), **v) if isinstance(v, dict) else v
+    return (cfg, dict(mix, **s["traffic"]),
+            list(s["program"]) + [(kit, "LIMITS", s["limits"])])
 
 
 def host_mark() -> dict:
@@ -82,15 +134,23 @@ def patched(module, name: str, wrap):
         setattr(module, name, orig)
 
 
-# the step's parts, spanned in the traced segment
-STEP_PARTS = ((api, "_attn_qkv", "bench.qkv"),
-              (kvplane, "append_sharded", "bench.append"),
-              (kvplane, "_select", "bench.select"),
-              (kvplane, "fetch_pages", "bench.fetch"),
-              (kvplane, "_attend_pages_partial", "bench.attend"),
-              (kvplane, "_profile", "bench.profile"),
-              (mlp_lib, "mlp", "bench.mlp"),
-              (api, "_logits", "bench.logits"))
+def _same_tree(a, b, path: str) -> None:
+    """Raise where tree ``a`` differs from ``b`` in keys, lengths, shapes
+    or dtypes."""
+    if isinstance(b, dict):
+        if set(a) != set(b):
+            raise ValueError(f"{path}: keys {sorted(a)} against the "
+                             f"program's {sorted(b)}")
+        for k in b:
+            _same_tree(a[k], b[k], f"{path}.{k}")
+    elif isinstance(b, list):
+        if len(a) != len(b):
+            raise ValueError(f"{path}: {len(a)} layers, program {len(b)}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_tree(x, y, f"{path}[{i}]")
+    elif a.shape != b.shape or a.dtype != b.dtype:
+        raise ValueError(f"{path}: {tuple(a.shape)} {a.dtype} against the "
+                         f"program's {tuple(b.shape)} {b.dtype}")
 
 
 class Run:
@@ -103,183 +163,76 @@ class Run:
         self.seconds, self.trace = float(seconds), bool(trace)
         self.device = torch.device(device)
         self.log = log
+        self.kit_mod = kit_of(cfg)
         self.model = arch_config(cfg["model"])
-        if self.model.family != "dense":
-            raise ValueError(f"the decode runner takes dense decoders, not "
+        if self.model.family not in self.kit_mod.FAMILIES:
+            raise ValueError(f"the kit {self.kit_mod.__name__} takes the "
+                             f"families {self.kit_mod.FAMILIES}, not "
                              f"{self.model.family!r}")
-        self.dims = lm_inputs.dims(cfg["model"])
-        if mix["loop"] != "closed" or int(mix["batch"]) != 1:
-            raise ValueError("the sparse plane decodes one sequence: a "
-                             "closed loop at batch 1")
-        self.shape = configs.ShapeConfig("long", int(mix["capacity_tokens"]),
-                                         1, "decode_long")
-        self.kvc, mode = api.kv_plan(self.model, self.shape)
-        plane = cfg["plane"]
-        have = {"page_tokens": self.kvc.page_tokens,
-                "topk_pages": self.kvc.sparse_topk,
-                "local_frames": self.kvc.num_frames,
-                "fetch_budget": self.kvc.fetch_budget,
-                "car_threshold": self.kvc.car_threshold}
-        if mode != "sparse" or any(plane[k] != v for k, v in have.items()):
-            raise ValueError(f"the program's plane is {mode} {have}, the "
-                             f"configuration states sparse {plane}")
-        self.context = int(mix["context_tokens"])
-        if self.context % self.kvc.page_tokens or \
-                self.context + 1 >= self.shape.seq_len:
-            raise ValueError("the context fills whole pages, short of the "
-                             "plane's capacity")
+        kind = mix.get("shape_kind", "decode_long")
+        if mix["loop"] != "closed" or kind not in SHAPE_KINDS:
+            raise ValueError(f"the decode runner takes a closed loop of "
+                             f"shape {SHAPE_KINDS}, not {mix['loop']!r} "
+                             f"{kind!r}")
+        self.batch = int(mix["batch"])
+        self.shape = configs.ShapeConfig(kind, int(mix["capacity_tokens"]),
+                                         self.batch, kind)
+        self.kvc, self.mode = api.kv_plan(self.model, self.shape)
+        if self.mode not in self.kit_mod.MODES:
+            raise ValueError(f"the kit {self.kit_mod.__name__} takes the "
+                             f"plane modes {self.kit_mod.MODES}; the program "
+                             f"plans {self.mode!r} for this shape")
         self.host_s = []            # host s of each step before the segment
-        self.fed = []               # the token fed to each step, in order
+        self.fed = []               # the tokens fed to each step, in order
         self.checked = []           # the recorded steps
         self.segment = None
         self.steps = 0
         self.control = False        # judge the control too (bench.lm_control)
+        self.kit = self.kit_mod.Kit(self)
 
     # -- set-up -------------------------------------------------------------
 
     def setup(self) -> None:
-        m, dev = self.dims, self.device
+        dev = self.device
         t0 = time.time()
-        self.params = self._params()
+        self.params = self.kit.params()
+        _same_tree(self.params, api.param_shapes(self.model), "params")
         self.weights_s = time.time() - t0
         self.state = api.init_decode_state(self.model, self.shape,
                                            device=dev)
         t0 = time.time()
-        self._fill()
+        self.pos = self.kit.fill(self.state)
         self.fill_s = time.time() - t0
         self.step_fn = api.decode_step(self.model, self.shape)
-        self.tok = lm_inputs.first_token(m, self.seed, dev)
-        self.pos = self.context
+        self.tok = self.kit.first_tokens()
         t0 = time.time()
         self._step(record=True, start=True)
         for _ in range(int(self.mix["warm_steps"]) - 1):
             self._step()
-        F = self.kvc.num_frames
-        self.held = min(int((s.frame_page[:F] >= 0).sum())
-                        for s in self.planes())
+        self.after_warm = self.kit.after_warm(self.state)
         self.warm_s = time.time() - t0
         # what set-up made stays alive for the run: keep the collector's
         # full passes from walking it inside the window
         gc.collect()
         gc.freeze()
 
-    def _params(self) -> dict:
-        """The benchmark's weights in the program's tree, checked against
-        the program's own shapes and dtypes."""
-        m, dev = self.dims, self.device
-        blocks = []
-        for layer in range(m["L"]):
-            w = lm_inputs.layer_weights(m, self.seed, layer, dev)
-            blocks.append({"ln1": w["ln1"], "ln2": w["ln2"],
-                           "attn": {k: w[k] for k in ("wq", "wk", "wv",
-                                                      "wo")},
-                           "mlp": {"wi": w["mlp_wi"], "wg": w["mlp_wg"],
-                                   "wo": w["mlp_wo"]}})
-        p = dict(lm_inputs.embed_and_head(m, self.seed, dev), blocks=blocks)
-        want = api.param_shapes(self.model)
-
-        def same(a, b, path):
-            if isinstance(b, dict):
-                if set(a) != set(b):
-                    raise ValueError(f"{path}: keys {sorted(a)} against the "
-                                     f"program's {sorted(b)}")
-                for k in b:
-                    same(a[k], b[k], f"{path}.{k}")
-            elif isinstance(b, list):
-                if len(a) != len(b):
-                    raise ValueError(f"{path}: {len(a)} layers, program "
-                                     f"{len(b)}")
-                for i, (x, y) in enumerate(zip(a, b)):
-                    same(x, y, f"{path}[{i}]")
-            elif a.shape != b.shape or a.dtype != b.dtype:
-                raise ValueError(f"{path}: {tuple(a.shape)} {a.dtype} "
-                                 f"against the program's "
-                                 f"{tuple(b.shape)} {b.dtype}")
-        same(p, want, "params")
-        return p
-
-    def planes(self) -> list:
-        return [kv[0] for kv in self.state.kv]
-
-    def _fill(self) -> None:
-        """Each layer's context into its plane's far tier, with the page
-        summaries (``write_page_to_slab``'s, for every page at once)."""
-        P = self.kvc.page_tokens
-        n = self.context // P
-        for layer, s in enumerate(self.planes()):
-            k, v = lm_inputs.context_layer(self.dims, self.mix["context"], n,
-                                           P, self.seed, layer, self.device)
-            s.k_slab[:, :n].copy_(k)
-            s.v_slab[:, :n].copy_(v)
-            s.kmax[:, :n].copy_(k.amax(dim=2).float())
-            s.kmin[:, :n].copy_(k.amin(dim=2).float())
-            del k, v
-        self.state.lengths.fill_(self.context)
-
     # -- a step -------------------------------------------------------------
 
     def _step(self, record: bool = False, start: bool = False) -> None:
-        """One greedy step; the next token is the argmax, on the card."""
+        """One greedy step; the next tokens are the argmax, on the card."""
         self.fed.append(self.tok)
         if record:
-            layers = []
-            with self._recording(layers):
+            rec = {}
+            with self.kit.recording(rec):
                 self.state, logits = self.step_fn(self.params, self.state,
                                                   self.tok)
-            self.checked.append({"t": self.pos, "tok": self.tok,
-                                 "logits": logits[0], "layers": layers,
-                                 "start": start})
+            self.checked.append(dict(rec, t=self.pos, tok=self.tok,
+                                     logits=logits, start=start))
         else:
             self.state, logits = self.step_fn(self.params, self.state,
                                               self.tok)
-        self.tok = logits[:, :self.dims["vocab"]].argmax(dim=-1)
+        self.tok = logits[:, :self.model.vocab].argmax(dim=-1)
         self.pos += 1
-
-    @contextlib.contextmanager
-    def _recording(self, layers: list):
-        """Each layer's selection and the query it was scored with; the
-        plane's page table, PSF, hints, card bits and page rows before the
-        fetch, the table, PSF and hints after it; the rows attended with
-        the frames' contents; the card bits after the profiling: appended
-        to ``layers`` as the step runs."""
-        def select(orig):
-            def inner(cfg, s, q, n_valid, newest):
-                top = orig(cfg, s, q, n_valid, newest)
-                layers.append({"tops": top[0], "q": q[0].float().clone()})
-                return top
-            return inner
-
-        def fetch(orig):
-            def inner(cfg, s, tops, fills, **kw):
-                rec = layers[-1]
-                rec.update(pt=s.page_table.clone(), psf=s.psf.clone(),
-                           hint=s.hot_hint.clone(), cat=s.cat.clone(),
-                           prow=s.page_rows.clone())
-                out = orig(cfg, s, tops, fills, **kw)
-                rec.update(pt_after=s.page_table.clone(),
-                           psf_after=s.psf.clone(),
-                           hint_after=s.hot_hint.clone())
-                return out
-            return inner
-
-        def profile(orig):
-            def inner(cfg, s, *a):
-                orig(cfg, s, *a)
-                layers[-1]["cat_after"] = s.cat.clone()
-            return inner
-
-        def attend(orig):
-            def inner(q, kf, vf, table, rows):
-                at = table[0].clamp_min(0).long()
-                layers[-1].update(table=table[0], rows=rows[0],
-                                  kf=kf[:, at], vf=vf[:, at])
-                return orig(q, kf, vf, table, rows)
-            return inner
-        with patched(kvplane, "_select", select), \
-                patched(kvplane, "fetch_pages", fetch), \
-                patched(kvplane, "_attend_pages_partial", attend), \
-                patched(kvplane, "_profile", profile):
-            yield
 
     # -- the window -----------------------------------------------------------
 
@@ -327,7 +280,7 @@ class Run:
         _sync(dev)
         with contextlib.ExitStack() as stack:
             prof = stack.enter_context(trace_lib.profiled(dev))
-            for mod, name, label in STEP_PARTS:
+            for mod, name, label in self.kit_mod.STEP_PARTS:
                 stack.enter_context(patched(
                     mod, name, functools.partial(trace_lib.wrap, label=label)))
             with trace_lib.span("bench.window"):
@@ -342,46 +295,29 @@ class Run:
     # -- after the window -----------------------------------------------------
 
     def check(self) -> dict:
-        """Read the peak and the appended rows, free the program's state,
-        then judge the recorded steps against the reference."""
-        dev, P = self.device, self.kvc.page_tokens
+        """Read the peak and what the kit's check reads of the program's
+        state, free the state, then have the kit judge the recorded
+        steps."""
+        dev = self.device
         _sync(dev)
         gc.unfreeze()
         self.memory_peak = (torch.cuda.max_memory_allocated(dev)
                             if dev.type == "cuda" else 0)
-        last = self.checked[-1]["t"]
-        a, b = self.context // P, last // P + 1
-        n = last + 1 - self.context
-        app_k, app_v = [], []
-        for s in self.planes():
-            KVH, hd = s.k_slab.shape[0], s.k_slab.shape[-1]
-            app_k.append(s.k_slab[:, a:b].reshape(KVH, -1, hd)[:, :n].clone())
-            app_v.append(s.v_slab[:, a:b].reshape(KVH, -1, hd)[:, :n].clone())
-        fed = torch.cat(self.fed[:n]).to(torch.int64)
-        steps = [{"t": c["t"], "token": int(c["tok"]), "logits": c["logits"],
-                  "layers": c["layers"], "start": c["start"]}
-                 for c in self.checked]
+        steps = self.checked
+        kept = self.kit.keep(self.state, steps[-1]["t"])
         del self.state, self.params, self.step_fn
         self.checked = None
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         t0 = time.time()
-        ref = lm_reference.Reference(self.cfg["model"], self.cfg["plane"],
-                                     self.mix["context"], self.seed,
-                                     self.context, dev, control=self.control)
-        self.readings = ref.run(steps, app_k, app_v, fed)
+        self.readings = self.kit.judge(steps, kept, self.fed)
         self.reference_s = time.time() - t0
         got = self.readings["program"]
-        lim = lm_reference.LIMITS
+        lim = self.kit_mod.LIMITS
         self.checks = {k: (got[k], lim[k]) for k in lim}
         self.failed = sum(any(s[k] > lim[k] for k in lim)
                           for s in self.readings["per_step"])
-        window_steps = range(len(steps) - CHECKED, len(steps))
-        self.attended_rows = sum(self.readings["attended_rows"][i]
-                                 for i in window_steps) / CHECKED
-        self.fetched_pages = sum(self.readings["fetched_pages"][i]
-                                 for i in window_steps) / CHECKED
         return self.checks
 
     @property
@@ -394,26 +330,19 @@ class Run:
 
     def end_to_end(self) -> dict:
         """The end-to-end readings of this run (host clock)."""
-        return {"decode_tokens_per_s":
-                int(self.mix["batch"]) * self.steps / self.window_s}
+        return {"decode_tokens_per_s": self.batch * self.steps / self.window_s}
 
     # -- what the run logs ----------------------------------------------------
 
     def log_setup(self, name: str, setup_s: float, build_s: float,
                   kind: str) -> None:
-        m = self.dims
         n_w = sum(t.numel() for t in _leaves(self.params))
-        self.log(f"[bench] {name} seed {self.seed}: {m['L']} layers, "
-                 f"{n_w / 1e9:.3f} B weights made in {self.weights_s:.2f} s; "
-                 f"{self.context} tokens of context in each of "
-                 f"{len(self.planes())} sparse planes ({self.kvc.num_pages} "
-                 f"pages, {self.kvc.num_frames} frames, top-"
-                 f"{self.kvc.sparse_topk}, fetch budget "
-                 f"{self.kvc.fetch_budget}) filled in {self.fill_s:.2f} s; "
-                 f"{self.mix['warm_steps']} warm steps in {self.warm_s:.2f} "
-                 f"s (after them the emptiest layer holds {self.held} of its "
-                 f"{self.kvc.num_frames} frames); kernel build {build_s:.1f} "
-                 f"s; set-up {setup_s:.3f} s on {kind}")
+        self.log(f"[bench] {name} seed {self.seed}: {self.model.n_layers} "
+                 f"layers, {n_w / 1e9:.3f} B weights made in "
+                 f"{self.weights_s:.2f} s; {self.kit.describe()} filled in "
+                 f"{self.fill_s:.2f} s; {self.mix['warm_steps']} warm steps "
+                 f"in {self.warm_s:.2f} s; kernel build {build_s:.1f} s; "
+                 f"set-up {setup_s:.3f} s on {kind}")
 
     def log_window(self) -> None:
         t = sorted(self.host_s)
@@ -425,20 +354,13 @@ class Run:
                  + f", max {t[-1] * 1e3:.2f} ({len(t)} steps before any "
                    f"traced segment)")
         self.log(f"[bench] window {self.window_s:.3f} s, {self.steps} steps "
-                 f"from position {self.pos0}{q}")
+                 f"of {self.batch} from position {self.pos0}{q}")
         self.log(f"[bench] host events in the window: {self.host_events}")
 
     def log_checked(self) -> None:
-        r = self.readings
-        steps = [{k: round(v, 6) for k, v in s.items()} for s in r["per_step"]]
-        self.log(f"[bench] {len(r['per_step'])} steps judged against the "
-                 f"reference in {self.reference_s:.1f} s (the start and the "
-                 f"window's last {CHECKED}; layer 0's appended rows of "
-                 f"{r['layer0_rows']} steps); per step "
-                 f"{steps}; rows attended "
-                 f"{r['attended_rows']} and pages fetched "
-                 f"{r['fetched_pages']} a step over the layers; correct: "
-                 f"{self.correct}")
+        self.log(f"[bench] {len(self.readings['per_step'])} steps judged "
+                 f"against the reference in {self.reference_s:.1f} s "
+                 f"{self.kit.describe_checked()}; correct: {self.correct}")
 
 
 def _leaves(tree):
@@ -453,18 +375,16 @@ def _leaves(tree):
 
 
 def record(run: Run, tr, peaks: dict) -> dict:
-    """What the per-layer readers of a decode cell read."""
+    """What the per-layer readers of a decode cell read: the host clock,
+    the traced segment, the card's peaks and the kit's counts."""
     seg = None
     if run.segment is not None:
         seg = {"steps": run.segment["steps"], "trace": tr,
                "before": run.segment["before"]}
-    m, kvc = run.cfg["model"], run.kvc
-    counts = lm_counts.StepCounts(
-        attended_rows=run.attended_rows, fetched_pages=run.fetched_pages,
-        summary_pages=kvc.num_pages, page_tokens=kvc.page_tokens,
-        batch=int(run.mix["batch"]))
-    return {"host_s": run.host_s, "segment": seg,
-            "flops_per_step": lm_counts.step_flops(m, counts),
-            "bytes_per_step": lm_counts.step_bytes(m, counts),
+    counts = run.kit.counts()
+    for k in ("flops_per_step", "bytes_per_step"):
+        if k not in counts:
+            raise ValueError(f"the kit {run.kit_mod.__name__} counts no {k}")
+    return {"host_s": run.host_s, "segment": seg, **counts,
             "flops_per_s": peaks.get("bf16_dense_flops_per_s"),
             "hbm_bytes_per_s": peaks.get("hbm_bytes_per_s")}

@@ -1,10 +1,12 @@
-"""The readings that set the decode check's limits: the program's on a
-dozen seeds or more (the lower readings); the control's, the reference in
-float8 e4m3 put in the program's place and judged by the same
-comparison, on three or more (the upper readings); and the program's
-with a fault of ``bench/lm_faults.py`` planted, on three or more each.
-Each seed is a run of the cell at its own size with a short window; the
-control reads the same steps.  The benchmark's runs never run it.
+"""The readings that set a decode check's limits, for any kit that has a
+control (``CONTROL``) and faults (``FAULTS``): the program's on a dozen
+seeds or more (the lower readings); the control's, the kit's reference in
+a lower precision put in the program's place and judged by the same
+comparison, on three or more (the upper readings; the dense kit's:
+float8 e4m3); and the program's with a fault of the kit's planted, on
+three or more each.  Each seed is a run of the cell at its own size with
+a short window; the control reads the same steps.  The benchmark's runs
+never run it.
 
     python3 -m bench.lm_control --workload yi-9b-200k.long \\
         --seeds 1,2,3,4,5,6,7,8,9,10,11,12 --control-seeds 1,2,3 \\
@@ -28,21 +30,29 @@ from bench import run as bench_run
 def readings(spec: dict, name: str, seed: int, seconds: float, device: str,
              control: bool, log=print, fault: str | None = None) -> dict:
     """One run of cell ``name`` (set-up, a window of ``seconds``, the
-    check), with ``fault`` planted if given; the program's readings and,
-    with ``control``, the control's."""
+    check), with the kit's ``fault`` planted if given; the program's
+    readings and, with ``control``, the control's."""
     import torch
 
-    from bench import decode, lm_faults
+    from bench import decode
     cell, cfg, mix = bench_run.cell_files(spec, name)
     run = decode.Run(cfg, mix, seed, seconds, False, torch.device(device),
                      log=log)
+    if control and not getattr(run.kit_mod, "CONTROL", False):
+        raise ValueError(f"the kit {run.kit_mod.__name__} has no control")
+    faults = getattr(run.kit_mod, "FAULTS", {})
+    if fault and fault not in faults:
+        raise ValueError(f"the kit {run.kit_mod.__name__} has no fault "
+                         f"{fault!r} (it has {sorted(faults)})")
     run.control = control
-    with (lm_faults.planted(fault) if fault else contextlib.nullcontext()):
+    planted = (decode.patched(*faults[fault]) if fault
+               else contextlib.nullcontext())
+    with planted:
         run.setup()
         run.window()
     run.check()
     out = {"program": run.readings["program"], "steps": run.steps,
-           "correct": run.correct, "frames_held": run.held,
+           "correct": run.correct, "after_warm": run.after_warm,
            "reference_s": run.reference_s}
     if control:
         out["control"] = run.readings["control"]
@@ -68,7 +78,9 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     sys.path.insert(0, str(bench_run.ROOT / "src"))
     spec = bench_run.load_json(bench_run.ROOT / "BENCHMARK.json")
-    from bench.lm_reference import LIMITS
+    from bench import decode
+    cfg = bench_run.cell_files(spec, args.workload)[1]
+    LIMITS = decode.kit_of(cfg).LIMITS
     ctl_seeds = set(_seeds(args.control_seeds))
     seeds = _seeds(args.seeds)
     faults = [f for f in args.faults.split(",") if f]
@@ -99,7 +111,7 @@ def main(argv=None) -> int:
                 refused[who] &= any(g[k] > LIMITS[k] for k in LIMITS)
         print(f"[control] {args.workload} seed {seed}"
               f"{' fault ' + fault if fault else ''}: {r['steps']} steps, "
-              f"{r['frames_held']} frames held after set-up, reference "
+              f"after set-up {r['after_warm']}, reference "
               f"{r['reference_s']:.1f} s; "
               f"{got}; correct {r['correct']}; limits {LIMITS}; "
               f"{time.time() - t0:.1f} s", flush=True)

@@ -3,13 +3,11 @@ function of the program, to show that the check refuses it: the tests at
 a smoke size (``bench/test_bench_decode.py``) and the readings at the
 cell's own size (``python3 -m bench.lm_control --faults ...``).
 
-``FAULTS[name]`` is ``(module, attribute, wrap)``; ``planted(name)``
-replaces ``module.attribute`` by ``wrap(original)`` inside a block.  The
-benchmark's runs plant none.
+``FAULTS[name]`` is ``(module, attribute, wrap)``, planted by
+``bench.decode.patched``, which replaces ``module.attribute`` by
+``wrap(original)`` inside a block.  The benchmark's runs plant none.
 """
 from __future__ import annotations
-
-import contextlib
 
 import torch
 from repro_torch.core import kvplane
@@ -152,14 +150,3 @@ FAULTS = {"newest_dropped": (kvplane, "_select", _newest_dropped),
           "altered": (api, "_logits", _altered),
           "unchanged": (api, "decode_step", _unchanged)}
 
-
-@contextlib.contextmanager
-def planted(name: str):
-    """Fault ``name`` in place inside the block."""
-    mod, attr, wrap = FAULTS[name]
-    orig = getattr(mod, attr)
-    setattr(mod, attr, wrap(orig))
-    try:
-        yield
-    finally:
-        setattr(mod, attr, orig)

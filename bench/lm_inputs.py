@@ -1,9 +1,9 @@
 """The inputs of a decode cell, made from the seed on the device: the
 weights of a dense decoder, the seeded context of each layer's KV plane
-and the first token.  The runner (``bench/decode.py``) hands them to the
-program; the reference (``bench/lm_reference.py``) makes them again, layer
-by layer, with the same calls, so both sides get the same bits and the
-reference reads none of the program's memory.
+and the first token.  The dense kit (``bench/lm_dense.py``) hands them to
+the program; the reference (``bench/lm_reference.py``) makes them again,
+layer by layer, with the same calls, so both sides get the same bits and
+the reference reads none of the program's memory.
 
 Every tensor comes from a generator of its own, seeded from the run's seed,
 a stream id and an index (SplitMix64, as ``bench/traffic.py`` mixes), so a

@@ -3,7 +3,8 @@ KV plane, and the comparison that decides ``correct`` for a decode cell.
 
 Plain ``torch`` in float32 with TF32 off.  It imports nothing of the
 program: its weights and each layer's context are made again from the
-seed by ``bench/lm_inputs.py``, with the calls the runner made them with.
+seed by ``bench/lm_inputs.py``, with the calls the dense kit
+(``bench/lm_dense.py``) made them with.
 A step is, per layer: RMSNorm, the q/k/v projections, RoPE at the
 absolute position, then the sparse plane's stated semantics:
 

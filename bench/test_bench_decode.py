@@ -1,57 +1,36 @@
-"""The decode cell on the CPU at a smoke size of its family (2 layers, d
-64, 4 heads, 2 KV heads, 1,920 tokens of context in 64-token pages, top
-4 of them, 6 frames, 2 fetched a step): the reference against
+"""The decode cell on the CPU at its kit's smoke size (``lm_dense.SMOKE``:
+2 layers, d 64, 4 heads, 2 KV heads, 1,920 tokens of context in 64-token
+pages, top 4 of them, 6 frames, 2 fetched a step): the reference against
 ``models.api.decode_step``, the runner end to end, the faults its check
-must refuse, the control, and the dispatch by ``system``."""
+must refuse, the control, and the dispatch by ``system`` and ``kit``."""
 import json
 import time
 
 import pytest
 import torch
 
-from bench import decode, lm_counts, lm_inputs, lm_reference
+from bench import decode, lm_counts, lm_dense, lm_inputs, lm_reference
 from bench import run as bench_run
 from bench.lm_faults import FAULTS
-from repro_torch.models import api
 
 SPEC = bench_run.load_json(bench_run.ROOT / "BENCHMARK.json")
 CELL = "yi-9b-200k.long"
 SEED = 2**31 + 41
-SMALL_MODEL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
-                   d_ff=128, vocab=512)
-SMALL_PLANE = {"page_tokens": 64, "topk_pages": 4, "local_frames": 6,
-               "fetch_budget": 2, "car_threshold": 0.8}
-# the limits at the smoke size: two layers at d 64 round differently from
-# 48 at d 4096 (sound runs on 8 seeds here read logits gaps up to 0.048,
-# the control 0.31-0.61; appended rows 0.017 against 0.096; selection gaps
-# 0, the scoring faults 0.0014-0.92; card marks up to 0.032 against the
-# control's 0.04-0.25)
-SMALL_LIMITS = {"logits_max_gap": 0.1, "selection_gap": 1e-4,
-                "selection_mismatch": 0,
-                "rows_mismatch": 0, "append_max_gap": 0.05,
-                "marks_max_gap": 0.1, "pageout_mismatch": 0}
+SMALL_LIMITS = lm_dense.SMOKE["limits"]
 
 
 @pytest.fixture
 def small(monkeypatch):
-    """The cell's files at the smoke size, and the program's plane
-    constants to match."""
-    load = bench_run.load_json
+    """The cell's files at its kit's smoke size, and the program's plane
+    constants and the kit's limits to match."""
+    files = bench_run.cell_files
 
-    def scaled(path):
-        d = load(path)
-        if path.parent.name == "configs" and d.get("system") == "lm_decode":
-            d["model"] = dict(d["model"], **SMALL_MODEL)
-            d["plane"] = dict(SMALL_PLANE)
-        elif path.name == "long.json":
-            d.update(capacity_tokens=4096, context_tokens=1920, warm_steps=6)
-        return d
-    monkeypatch.setattr(bench_run, "load_json", scaled)
-    monkeypatch.setattr(api, "SPARSE_TOPK", SMALL_PLANE["topk_pages"])
-    monkeypatch.setattr(api, "SPARSE_LOCAL_FRAMES",
-                        SMALL_PLANE["local_frames"])
-    monkeypatch.setattr(api, "FETCH_BUDGET", SMALL_PLANE["fetch_budget"])
-    monkeypatch.setattr(lm_reference, "LIMITS", SMALL_LIMITS)
+    def scaled(spec, name):
+        cell, cfg, mix = files(spec, name)
+        return (cell, *decode.at_smoke_size(cfg, mix)[:2])
+    for obj, attr, value in decode.at_smoke_size(*files(SPEC, CELL)[1:])[2]:
+        monkeypatch.setattr(obj, attr, value)
+    monkeypatch.setattr(bench_run, "cell_files", scaled)
 
 
 def _measure(trace=False, seconds=0.6):
@@ -136,9 +115,9 @@ def test_control_is_refused(small):
     for seed in (1, 2, 3):
         r = lm_control.readings(SPEC, CELL, seed, 0.3, "cpu", control=True)
         assert any(r["control"][k] > lim
-                   for k, lim in lm_reference.LIMITS.items()), r
+                   for k, lim in SMALL_LIMITS.items()), r
         assert all(r["program"][k] <= lim
-                   for k, lim in lm_reference.LIMITS.items()), r
+                   for k, lim in SMALL_LIMITS.items()), r
 
 
 def test_unknown_system_is_refused(monkeypatch, capsys):
@@ -157,6 +136,24 @@ def test_unknown_system_is_refused(monkeypatch, capsys):
     assert "unknown system" in out.err
     with pytest.raises(ValueError, match="unknown system"):
         bench_run.runner({"system": "no_such_system"})
+
+
+def test_unknown_kit_is_refused(monkeypatch):
+    """A configuration that names a kit with no file under ``bench/`` is
+    refused before anything is made, with the kit's name."""
+    files = bench_run.cell_files
+
+    def other(spec, name):
+        cell, cfg, mix = files(spec, name)
+        return cell, dict(cfg, kit="no_such_kit"), mix
+    monkeypatch.setattr(bench_run, "cell_files", other)
+    with pytest.raises(ValueError, match="no_such_kit.*no bench/no_such_kit"):
+        bench_run.measure(SPEC, CELL, SEED, 0.1, False, "cpu", time.time(),
+                          log=lambda *a: None)
+    for bad in ("../run", "lm dense", 3):
+        with pytest.raises(ValueError, match="names the kit"):
+            decode.kit_of({"name": "x", "kit": bad})
+    assert decode.kit_of({"name": "x"}) is lm_dense
 
 
 def test_store_cell_keeps_its_keys():

@@ -28,12 +28,19 @@ def test_no_module_imports_jax_or_the_jax_package():
         assert not (_top_level_imports(f) & FORBIDDEN), f
 
 
-@pytest.mark.parametrize("name", ["lm_reference.py", "lm_inputs.py",
-                                  "lm_counts.py"])
+def _yardsticks() -> list:
+    """The benchmark's references and counts: every module under
+    ``bench/`` (tests aside) whose name says it is one."""
+    return sorted(p.name for p in BENCH.glob("*.py")
+                  if ("reference" in p.stem or "counts" in p.stem)
+                  and not p.stem.startswith("test_"))
+
+
+@pytest.mark.parametrize("name", _yardsticks())
 def test_the_decode_reference_imports_no_program(name):
-    """The decode reference and what it makes its inputs and counts with
-    import nothing of the program (``repro_torch``) either, directly or
-    through another ``bench`` module."""
+    """A reference, and what it makes its inputs and counts with, import
+    nothing of the program (``repro_torch``) either, directly or through
+    another ``bench`` module."""
     seen, todo = set(), [name]
     while todo:
         f = todo.pop()
@@ -50,40 +57,50 @@ def test_the_decode_reference_imports_no_program(name):
                     todo.append(node.module.split(".")[0] + ".py")
                 else:
                     todo += [a.name + ".py" for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module == "bench":
+                todo += [a.name + ".py" for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and \
+                    node.module.startswith("bench."):
+                todo.append(node.module.split(".")[1] + ".py")
     assert "lm_inputs.py" in seen or name != "lm_reference.py"
+
+
+def test_every_reference_is_checked():
+    """The references of both runners are among what the test above
+    reads, found by name alone."""
+    assert {"reference.py", "lm_reference.py",
+            "lm_counts.py"} <= set(_yardsticks())
 
 
 def test_a_run_loads_neither(tmp_path):
     """A tiny CPU run of every cell's internals, in a fresh process, leaves
-    neither JAX nor the JAX package in ``sys.modules``."""
+    neither JAX nor the JAX package in ``sys.modules``: each decode cell at
+    its kit's smoke size (``bench.decode.at_smoke_size``), each store cell
+    at 32,768 objects."""
     code = f"""
 import json, sys, time
 sys.path[:0] = [{str(BENCH.parent)!r}, {str(BENCH.parent / "src")!r}]
 from bench import run as r
-from repro_torch.models import api
-from bench import lm_reference
-from bench.test_bench_decode import SMALL_LIMITS
-api.SPARSE_TOPK, api.SPARSE_LOCAL_FRAMES, api.FETCH_BUDGET = 4, 6, 2
-lm_reference.LIMITS = SMALL_LIMITS
-load = r.load_json
-def small(path):
-    d = load(path)
-    if path.parent.name == "configs" and d["system"] == "lm_decode":
-        d["model"].update(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
-                          d_ff=128, vocab=512)
-        d["plane"].update(topk_pages=4, local_frames=6, fetch_budget=2)
-    elif path.parent.name == "configs":
-        d.update(objects=32768, fill_batch=4096, warm_ticks=2)
-    if path.parent.name == "traffic":
-        d["rate_per_s"] = min(d.get("rate_per_s", 0), 5000)
-        d["max_requests_per_s"] = 50000
-        d.update(capacity_tokens=4096, context_tokens=1920, warm_steps=4)
-    return d
-r.load_json = small
-spec = load(r.ROOT / "BENCHMARK.json")
+from bench import decode
+spec = r.load_json(r.ROOT / "BENCHMARK.json")
+files = r.cell_files
 for w in spec["workloads"]:
+    cell, cfg, mix = files(spec, w["name"])
+    patches = []
+    if cfg["system"] == "lm_decode":
+        cfg, mix, patches = decode.at_smoke_size(cfg, mix)
+    else:
+        cfg.update(objects=32768, fill_batch=4096, warm_ticks=2)
+        mix["rate_per_s"] = min(mix.get("rate_per_s", 0), 5000)
+        mix["max_requests_per_s"] = 50000
+    saved = [(o, a, getattr(o, a)) for o, a, _ in patches]
+    for o, a, v in patches:
+        setattr(o, a, v)
+    r.cell_files = lambda s, n, got=(cell, cfg, mix): got
     res, _ = r.measure(spec, w["name"], 5, 0.3, False, "cpu", time.time(),
                        log=lambda *a: None)
+    for o, a, v in saved:
+        setattr(o, a, v)
     assert res["correct"], res
 print(json.dumps(r.forbidden_modules()))
 """
