@@ -107,7 +107,8 @@ Phases (any failure exits non-zero, with no result line):
               append_dense + attend_dense steps against an f32
               recomputation on 4 sequences
 13. lm        llama3-8b at full width and depth (32 layers, bf16, weights
-              from a seeded generator) through models.api.decode_step:
+              from a seeded generator) through models.api.decode_step,
+              replayed from one captured CUDA graph after its first step:
               8 sequences, 2,048 seeded tokens of context in the dense KV
               plane, 32 timed greedy steps (paged_attention 32 launches a
               step, lengths 2,080 after), 8 steps each also through the
@@ -856,7 +857,10 @@ def profiled(torch, fn, reps):
         wall = time.time() - t0
     rows = []  # device-side events only: each kernel and memcpy once
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # the program's spans (``engine.*``, as around a graph's replay)
+        # show on the device too, as the time of the kernels inside them
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.key.startswith("engine."):
             rows.append((getattr(e, "self_device_time_total",
                                  getattr(e, "self_cuda_time_total", 0)),
                          e.count, e.key))
@@ -4182,7 +4186,9 @@ def logged_run(torch, ops, step, params, state, tok, steps: int, tag: str,
         ms.append((time.perf_counter() - t0) * 1e3)
         if isinstance(logits, DTensor):
             logits = logits.full_tensor()
-        logits_all.append(logits)
+        # a replayed step's logits are its graph's buffer, which the next
+        # replay overwrites
+        logits_all.append(logits.clone())
         tok = logits.argmax(dim=-1).to(torch.int32)
     launches = ops.launch_counts()
     for k in ("gather_rows", "compact_pages", "cat_decay", "page_scores",

@@ -22,6 +22,8 @@ The tree (a child runs inside its parent):
   (one a victim); or ``engine.evacuate.replay``
 - ``engine.epoch``: ``engine.epoch.replay`` where the epoch is replayed
 - ``engine.retire``: ``engine.wait``
+- ``engine.decode.replay``, on its own (a decode step is no engine tick):
+  the launch of a decode step's captured CUDA graph (``models/replay.py``)
 
 A replayed call runs no Python inside its graph, so the spans of its
 parts appear only on the calls that run eagerly or are captured.

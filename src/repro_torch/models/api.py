@@ -63,19 +63,24 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import sys
 from typing import Any, Callable, NamedTuple
 
 import torch
 from torch.distributed.tensor import DTensor
 
 from ..configs import ArchConfig, ShapeConfig
-from ..core import expertplane, kvplane
+from ..core import batch as batch_lib
+from ..core import expertplane, kvplane, paths
 from ..core import state as st
+from ..kernels import ops as kops
 from ..tree import value_and_grad
 from . import attention as attn_lib
+from . import common
 from . import encdec as encdec_lib
 from . import lm as lm_lib
 from . import mlp as mlp_lib
+from . import replay as replay_lib
 from . import ssm as ssm_lib
 from ..launch import mesh as mesh_lib
 from .common import DP, dense, init_params as _init, pspecs as _pspecs, \
@@ -433,7 +438,16 @@ def decode_step(cfg: ArchConfig, shape: ShapeConfig, shards: int = 1, *,
     """Build the serve step: (params, state, tokens [B] int) ->
     (state, logits [B, vocab_padded] f32).  ``kernel_impl="ref"`` runs
     every kernel's plain version (the comparison path); ``fetch_mode``
-    picks the expert plane's fetch executor."""
+    picks the expert plane's fetch executor.
+
+    A decoder-only step without the expert plane is a ``replay.Replayed``:
+    on a card, with no model mesh current and the functions of
+    ``STEP_MODULES`` as imported, it replays the whole step (embedding,
+    every layer, the logits) from one captured CUDA graph, and then the
+    ``lengths`` and logits it returns are the graph's own buffers, which
+    its next replay overwrites (see ``replay.Replayed``; its
+    ``replay_counts`` tally what it did).  Every other step, and every
+    step on the CPU, runs eagerly."""
     fam = cfg.family
     B = shape.global_batch
     kvc, mode = kv_plan(cfg, shape, shards)
@@ -533,7 +547,9 @@ def decode_step(cfg: ArchConfig, shape: ShapeConfig, shards: int = 1, *,
         logits = _logits(cfg, params, x)
         return ServeState(lengths + 1, state.kv, state.extra), logits
 
-    return step
+    if epc is not None:
+        return step
+    return replay_lib.Replayed(step, _STEP_FUNCTIONS)
 
 
 # --------------------------------------------------------------------------
@@ -722,3 +738,14 @@ def make_prefill_step(cfg: ArchConfig):
                                    batch.get("patches"))
         return logits[:, -1]
     return step
+
+
+# --------------------------------------------------------------------------
+# what a replayed decode step reaches (replay.may_replay)
+# --------------------------------------------------------------------------
+
+# the modules whose functions a decoder-only step calls: it replays from its
+# graph only while each of their functions is the one bound here at import
+STEP_MODULES = (sys.modules[__name__], common, mlp_lib, lm_lib, kvplane,
+                batch_lib, paths, kops)
+_STEP_FUNCTIONS = replay_lib.originals(STEP_MODULES)
